@@ -7,12 +7,14 @@ Phases, each failing hard (no exception is caught):
 
 1. the card's name and power limit, and the time to build the kernels
    (nvcc, one process per source under kanzi_tpu_torch/csrc/);
-2. kernels: each of the four kernels against its plain PyTorch version on
-   the card, at the shapes of the main path, with its median time from
+2. kernels: each of the eight kernels against its plain PyTorch version
+   on the card, at the shapes of the main path, with its median time from
    CUDA events, its roofline bound and (where one exists) the time of one
    PyTorch library call computing the same function;
 3. the slice: a 64 MiB seeded corpus through compress/decompress at levels
-   2 and 3 on the card, byte-identical to the host C++ path;
+   2, 3 and 5 on the card, and its first 16 MiB through the ANS1 and RANGE
+   codecs, byte-identical to the host C++ path, each path read by the
+   launch counters;
 4. compress_step on the real blocks and lanes, checked against numpy and
    the integer entropy reference;
 5. a profile of the level 2 device path: the device's busy share
@@ -38,8 +40,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MIB = 1 << 20
 BLOCK = 4 * MIB
 CORPUS = 64 * MIB
+SHORT = 16 * MIB          # the ANS1 and RANGE paths: a smaller depth
 SEED = 0x4B414E5A
 SLICE_REPS = 3
+SHORT_REPS = 3
+LEVEL5_CHAIN = "TEXT+UTF+BWT+RANK+ZRLT"
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
 # the non-tensor-core rate, taken for the integer and float32 work here
@@ -105,6 +110,193 @@ def bound(nbytes: int, nops: int) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = nops / PEAK_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def transform_posts(native, kt, blocks, chain: str, entropy: str) -> list:
+    """The post-transform blocks that the Writer hands the entropy engine."""
+    posts = []
+    ctx = {"bsVersion": 6, "entropy": entropy, "blockSize": BLOCK}
+    for b in blocks:
+        dst = np.empty(2 * len(b) + 65536, np.uint8)
+        n = native.block_transform(b, kt.transforms.get_type(chain),
+                                   kt.entropy.get_type(entropy), dict(ctx), 0,
+                                   False, dst)[0]
+        posts.append(dst[:n].copy())
+    return posts
+
+
+def hold(torch, kernel, plain, args, extra=()) -> float:
+    """Run the kernel and its plain version on the same tensors; fail
+    unless they agree exactly. Returns the largest difference (0)."""
+    got = kernel(*args, *extra)
+    want = plain(*args, *extra)
+    torch.cuda.synchronize()
+    err = max(float((g.long() - w.long()).abs().max().item()) if g.numel() else 0.0
+              for g, w in zip(got, want))
+    check(err == 0, f"{kernel.__module__}.{kernel.__name__}: kernel != plain "
+          f"(max abs err {err})")
+    return err
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
+    """K5-K8 against their plain versions at the main path's shapes."""
+    from kanzi_tpu_torch.entropy import ans_device, range_device
+    from kanzi_tpu_torch.ops import ans as ops_ans, range as ops_range
+    from kanzi_tpu_torch.ops.state import to_port_state
+
+    # K5, order 0: the level 5 Writer's batch (jobs=4: four 4 MiB blocks)
+    posts5 = transform_posts(native, kt, raw[:4], LEVEL5_CHAIN, "ANS0")
+    _, batch = ans_device.DeviceANSEngine(0, cuda).encode_batch(posts5)
+    st = to_port_state(batch, cuda)
+    a = (st["ans_syms"], st["ngroups"], st["ans_tables"])
+    err = hold(torch, ops_ans.encode_chunks, ops_ans._encode_chunks_plain, a)
+    B, G, _ = a[0].shape
+    nsym = 4 * int(batch["ngroups"].sum())
+    bms, bby = bound(nbytes_of(*a) + B * 4 * G * 2 + B * 4 + B * 16, 10 * nsym)
+    enc = dict(source="kanzi_tpu_torch/csrc/ans.cu",
+               replaces="kanzi_tpu/ops/ans.py:54", shape=[B, G, 4],
+               max_abs_err=err,
+               ms=median_ms(torch, lambda: ops_ans.encode_chunks(*a), 10),
+               plain_ms=median_ms(torch, lambda: ops_ans._encode_chunks_plain(*a), 1, 0),
+               bound_ms=bms, bound_by=bby, library_ms=None)
+    del st, a
+
+    # K6, order 0: one block's host ANS0 payload, as the Reader decodes it
+    payload, _ = native.entropy_encode(5, posts5[0], {"bsVersion": 6})
+    batch, _ = ans_device.decode_batch(np.frombuffer(payload, np.uint8),
+                                       len(posts5[0]), 0)
+    glen = int(batch["ngroups"].max())
+    st = to_port_state(batch, cuda)
+    a = (st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
+         st["ngroups"], st["lr"])
+    derr = hold(torch, ops_ans.decode_chunks, ops_ans._decode_chunks_plain, a, (0, glen))
+    B = a[0].shape[0]
+    nsym = 4 * int(batch["ngroups"].sum())
+    bms, bby = bound(nbytes_of(*a) + B * glen * 4 + B * 4, 12 * nsym)
+    dec = dict(source="kanzi_tpu_torch/csrc/ans.cu",
+               replaces="kanzi_tpu/ops/ans.py:114", shape=[B, glen, 4],
+               max_abs_err=derr,
+               ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 0, glen), 10),
+               plain_ms=median_ms(torch, lambda: ops_ans._decode_chunks_plain(*a, 0, glen), 1, 0),
+               bound_ms=bms, bound_by=bby, library_ms=None)
+    del st, a
+
+    # order 1 (ANS1): the kernels timed at the Writer's shape (four raw
+    # blocks, one 2^20-group row each) and the Reader's (one block); the
+    # plain loop over 2^20 groups would take minutes, so kernel and plain
+    # version are held against each other on one 32 KiB chunk
+    eng1 = ans_device.DeviceANSEngine(1, cuda)
+    _, batch = eng1.encode_batch(list(raw[:4]))
+    st = to_port_state(batch, cuda)
+    a = (st["ans_syms"], st["ngroups"], st["ans_tables"])
+    B, G, _ = a[0].shape
+    bms, bby = bound(nbytes_of(*a) + B * 4 * G * 2 + B * 20,
+                     40 * int(batch["ngroups"].sum()))
+    enc["order1"] = dict(shape=[B, G, 4], bound_ms=bms, bound_by=bby,
+                         ms=median_ms(torch, lambda: ops_ans.encode_chunks(*a), 3))
+    del st, a
+    payload, _ = native.entropy_encode(8, raw[0], {"bsVersion": 6})
+    batch, _ = ans_device.decode_batch(np.frombuffer(payload, np.uint8), BLOCK, 1)
+    glen = int(batch["ngroups"].max())
+    st = to_port_state(batch, cuda)
+    a = (st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
+         st["ngroups"], st["lr"])
+    bms, bby = bound(nbytes_of(*a) + glen * 4 + 4, 48 * int(batch["ngroups"].sum()))
+    dec["order1"] = dict(shape=[1, glen, 4], bound_ms=bms, bound_by=bby,
+                         ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 1, glen), 3))
+    del st, a
+    small = raw[0][:32768]
+    _, batch = eng1.encode_batch([small])
+    st = to_port_state(batch, cuda)
+    a = (st["ans_syms"], st["ngroups"], st["ans_tables"])
+    enc["max_abs_err"] = max(err, hold(torch, ops_ans.encode_chunks,
+                                       ops_ans._encode_chunks_plain, a))
+    enc["order1"].update(held_on=list(a[0].shape), plain_ms=median_ms(
+        torch, lambda: ops_ans._encode_chunks_plain(*a), 1, 0))
+    payload, _ = native.entropy_encode(8, small, {"bsVersion": 6})
+    batch, _ = ans_device.decode_batch(np.frombuffer(payload, np.uint8), len(small), 1)
+    glen = int(batch["ngroups"].max())
+    st = to_port_state(batch, cuda)
+    a = (st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
+         st["ngroups"], st["lr"])
+    dec["max_abs_err"] = max(derr, hold(torch, ops_ans.decode_chunks,
+                                        ops_ans._decode_chunks_plain, a, (1, glen)))
+    dec["order1"].update(held_on=[1, glen, 4], plain_ms=median_ms(
+        torch, lambda: ops_ans._decode_chunks_plain(*a, 1, glen), 1, 0))
+    del st, a
+    results["ans_encode"], results["ans_decode"] = enc, dec
+
+    # K7: the RANGE Writer's batch (transform LZ, jobs=4: four 4 MiB blocks)
+    posts_lz = transform_posts(native, kt, raw[:4], "LZ", "RANGE")
+    _, batch = range_device.DeviceRangeEngine(cuda).encode_batch(posts_lz)
+    st = to_port_state(batch, cuda)
+    a = (st["rng_syms"], st["nvalid"], st["rng_tables"], st["shifts"])
+    err = hold(torch, ops_range.encode_chunks, ops_range._encode_chunks_plain, a)
+    B, N = a[0].shape
+    nb = int(batch["nvalid"].sum())
+    bms, bby = bound(nbytes_of(*a) + B * 2 * N * 4 + B * 12, 20 * nb)
+    results["range_encode"] = dict(
+        source="kanzi_tpu_torch/csrc/range.cu", replaces="kanzi_tpu/ops/range.py:109",
+        shape=[B, N], max_abs_err=err,
+        ms=median_ms(torch, lambda: ops_range.encode_chunks(*a), 10),
+        plain_ms=median_ms(torch, lambda: ops_range._encode_chunks_plain(*a), 1, 0),
+        bound_ms=bms, bound_by=bby, library_ms=None)
+    del st, a
+
+    # K8: the first chunk of one block's host RANGE payload, one row as the
+    # Reader's chunk walk launches it
+    payload, _ = native.entropy_encode(4, posts_lz[0], {"bsVersion": 6})
+    _, _, batch = range_device.chunk_batch(np.frombuffer(payload, np.uint8), 0,
+                                           range_device._CHUNK)
+    st = to_port_state(batch, cuda)
+    a = (st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"], st["shifts"],
+         st["nvalid"])
+    glen = range_device._CHUNK
+    err = hold(torch, ops_range.decode_chunks, ops_range._decode_chunks_plain, a, (glen,))
+    bms, bby = bound(nbytes_of(*a) + glen + 4, 30 * glen)
+    results["range_decode"] = dict(
+        source="kanzi_tpu_torch/csrc/range.cu", replaces="kanzi_tpu/ops/range.py:186",
+        shape=[1, glen], max_abs_err=err,
+        ms=median_ms(torch, lambda: ops_range.decode_chunks(*a, glen), 20),
+        plain_ms=median_ms(torch, lambda: ops_range._decode_chunks_plain(*a, glen), 1, 0),
+        bound_ms=bms, bound_by=bby, library_ms=None)
+
+
+def run_path(torch, kt, K, label, data, reps, kw, kernels) -> dict:
+    """One slice path: `reps` runs of the device and the host C++ paths in
+    turns, byte-identical streams decoded to the input. The launch counts
+    are set to 0 just before and read just after; returns them."""
+    K.reset_counts()
+    runs = {k: [] for k in ("device encode", "device decode",
+                            "host C++ encode", "host C++ decode")}
+    for _ in range(reps):
+        for device, name in (("cuda", "device"), (None, "host C++")):
+            t = time.perf_counter()
+            blob = kt.compress(data, checksum=32, device=device, **kw)
+            torch.cuda.synchronize()
+            runs[f"{name} encode"].append(len(data) / (time.perf_counter() - t) / 1e6)
+            t = time.perf_counter()
+            back = kt.decompress(blob, device=device)
+            torch.cuda.synchronize()
+            runs[f"{name} decode"].append(len(data) / (time.perf_counter() - t) / 1e6)
+            check(back == data, f"{label}: {name} decode != input")
+            if device is None:
+                check(blob == dev_blob, f"{label}: device stream != host C++ stream")
+            else:
+                dev_blob = blob
+    counts = dict(K.launches)
+    print(f"{label} ({kw}): {len(data)} -> {len(dev_blob)} bytes, {reps} runs "
+          f"of each path, launches {counts}", flush=True)
+    for k, v in runs.items():
+        print(f"  {k}: median {statistics.median(v)} MB/s, runs {v}", flush=True)
+    for k in kernels:
+        check(counts[k] > 0, f"{label}: {k} never launched")
+    check(sum(K.plain_calls.values()) == 0, f"{label}: a plain version ran")
+    return counts
 
 
 def profile_level2(torch, kt, corpus: bytes) -> None:
@@ -178,7 +370,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     K.build()
-    print(f"kernel build: {time.perf_counter() - t0:.3f} s "
+    phase_s = {"build": time.perf_counter() - t0}
+    print(f"kernel build: {phase_s['build']:.3f} s "
           f"(nvcc, {len(K.build_log)} sources in parallel)", flush=True)
     cuda = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -190,6 +383,7 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions, at main-path shapes -----
     print("== kernels", flush=True)
+    t_phase = time.perf_counter()
     blocks = torch.from_numpy(raw.copy()).to(cuda)
     B, N = blocks.shape
     h_k = block_stats.histograms_u8(blocks)
@@ -243,7 +437,7 @@ def main() -> int:
                      + L * ops_huffman.WORDS * 4 + L * 4, 5 * nsym)
     results["pack_lanes"] = dict(
         source="kanzi_tpu_torch/csrc/huffman.cu",
-        replaces="kanzi_tpu/ops/huffman.py:28", shape=[L, frag],
+        replaces="kanzi_tpu/ops/huffman.py:29", shape=[L, frag],
         max_abs_err=float(max((w_k.long() - w_p.long()).abs().max().item(),
                               (n_k - n_p).abs().max().item())),
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None)
@@ -273,54 +467,52 @@ def main() -> int:
                      10 * L * ops_huffman.FRAG)
     results["decode_lanes"] = dict(
         source="kanzi_tpu_torch/csrc/huffman.cu",
-        replaces="kanzi_tpu/ops/huffman.py:85", shape=[L, S],
+        replaces="kanzi_tpu/ops/huffman.py:86", shape=[L, S],
         max_abs_err=float((s_k.int() - s_p.int()).abs().max().item()),
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None)
     del s_p
+    ans_range_kernels(torch, kt, native, raw, cuda, results)
     for name, r in results.items():
         print(f"{name}: shape {r['shape']} kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}), library {r['library_ms']}, "
               f"max_abs_err {r['max_abs_err']}", flush=True)
+        if "order1" in r:
+            o = r["order1"]
+            print(f"  {name} order 1: kernel {o['ms']:.4f} ms at shape "
+                  f"{o['shape']}, bound {o['bound_ms']:.6f} ms ({o['bound_by']}); "
+                  f"held against plain on one 32 KiB chunk, shape "
+                  f"{o['held_on']}, plain {o['plain_ms']:.4f} ms", flush=True)
+    phase_s["kernels"] = time.perf_counter() - t_phase
 
     # -- 3. the slice: Writer/Reader on the card --------------------------
-    # SLICE_REPS runs of each path, device and host C++ in turns, so that
-    # the spread shows beside the medians
+    # runs of each path, device and host C++ in turns, so that the spread
+    # shows beside the medians
     print("== slice", flush=True)
-    K.reset_counts()
-    for level, jobs in ((2, 4), (3, 1)):
-        before = dict(K.launches)
-        runs = {k: [] for k in ("device encode", "device decode",
-                                "host C++ encode", "host C++ decode")}
-        for _ in range(SLICE_REPS):
-            for device, name in (("cuda", "device"), (None, "host C++")):
-                t = time.perf_counter()
-                blob = kt.compress(corpus, level=level, jobs=jobs, checksum=32,
-                                   device=device)
-                torch.cuda.synchronize()
-                runs[f"{name} encode"].append(len(corpus) / (time.perf_counter() - t) / 1e6)
-                t = time.perf_counter()
-                back = kt.decompress(blob, device=device)
-                torch.cuda.synchronize()
-                runs[f"{name} decode"].append(len(corpus) / (time.perf_counter() - t) / 1e6)
-                check(back == corpus, f"level {level}: {name} decode != input")
-                if device is None:
-                    check(blob == dev_blob,
-                          f"level {level}: device stream != host C++ stream")
-                else:
-                    dev_blob = blob
-        d = {k: K.launches[k] - before[k] for k in K.KERNELS}
-        print(f"level {level} jobs {jobs}: {len(corpus)} -> {len(dev_blob)} bytes, "
-              f"launches {d}", flush=True)
-        for k, v in runs.items():
-            print(f"  {k}: median {statistics.median(v)} MB/s, runs {v}", flush=True)
-    slice_launches = dict(K.launches)
-    check(slice_launches["pack_lanes"] > 0, "slice: pack_lanes never launched")
-    check(slice_launches["decode_lanes"] > 0, "slice: decode_lanes never launched")
-    check(sum(K.plain_calls.values()) == 0, "slice: a plain version ran")
+    t_phase = time.perf_counter()
+    from kanzi_tpu_torch.entropy import ans_device
+    ans_device.counts["host_route"] = 0
+    huff, ans, rng_k = ("pack_lanes", "decode_lanes"), ("ans_encode", "ans_decode"), \
+        ("range_encode", "range_decode")
+    short = corpus[:SHORT]
+    main_launches = {k: 0 for k in K.KERNELS}
+    for label, data, reps, kw, kernels in (
+            ("level 2", corpus, SLICE_REPS, dict(level=2, jobs=4), huff),
+            ("level 3", corpus, SLICE_REPS, dict(level=3, jobs=1), huff),
+            ("level 5", corpus, SLICE_REPS, dict(level=5, jobs=4), ans),
+            ("ANS1", short, SHORT_REPS, dict(transform="NONE", entropy="ANS1",
+                                            block_size=BLOCK, jobs=4), ans),
+            ("RANGE", short, SHORT_REPS, dict(transform="LZ", entropy="RANGE",
+                                             block_size=BLOCK, jobs=4), rng_k)):
+        for k, v in run_path(torch, kt, K, label, data, reps, kw, kernels).items():
+            main_launches[k] += v
+    print(f"ANS host route (order-1 chunks of 2-3 bytes): "
+          f"{ans_device.counts['host_route']} blocks", flush=True)
+    phase_s["slice"] = time.perf_counter() - t_phase
 
     # -- 4. compress_step on the real blocks and lanes ---------------------
     print("== compress_step", flush=True)
+    t_phase = time.perf_counter()
     handles = engine.dispatch_many(posts4)
     writer_words, writer_nbits = handles[0][4].get()
     K.reset_counts()
@@ -346,9 +538,14 @@ def main() -> int:
           f"{int(total.item())}, entropy1024 {ent.tolist()}, launches "
           f"{step_launches}", flush=True)
 
+    phase_s["compress_step"] = time.perf_counter() - t_phase
+
     # -- 5. where the time of the level 2 device path goes ----------------
     print("== profile", flush=True)
+    t_phase = time.perf_counter()
     profile_level2(torch, kt, corpus)
+    phase_s["profile"] = time.perf_counter() - t_phase
+    print(f"seconds per phase: {phase_s}", flush=True)
 
     kernels = []
     for name in K.KERNELS:
@@ -356,7 +553,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"],
-            "launches": slice_launches[name] + step_launches[name],
+            "launches": main_launches[name] + step_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -5,7 +5,8 @@ Streams are byte-identical to kanzi_tpu's (KANZ bitstream v6). The layers:
 - `kanzi_tpu_torch.ops`      — CUDA kernels (csrc/, built with nvcc for
                                sm_90a at first use) behind wrappers that
                                carry each kernel's plain PyTorch version
-- `kanzi_tpu_torch.entropy`  — entropy registry; the device Huffman engine
+- `kanzi_tpu_torch.entropy`  — entropy registry; the device Huffman, rANS
+                               (ANS0/ANS1) and range engines
 - `kanzi_tpu_torch.parallel` — the fused device compress step
 - `kanzi_tpu_torch.native`   — C++ host runtime for the bit-serial loops
                                (transforms, table prep, frame splice)
@@ -13,10 +14,12 @@ Streams are byte-identical to kanzi_tpu's (KANZ bitstream v6). The layers:
 
 Every entry point takes `device`: "cuda" (the default) runs the kernels and
 raises without a card, "cpu" runs their plain PyTorch versions, None runs
-the host C++ engine throughout.
+the host C++ engine throughout. The entropy stages of levels 2, 3 (HUFFMAN)
+and 5 (ANS0), and the ANS1 and RANGE codecs, run on the device; the other
+codecs run on the host C++ engine on every path.
 
     >>> import kanzi_tpu_torch
-    >>> blob = kanzi_tpu_torch.compress(data, level=2)
+    >>> blob = kanzi_tpu_torch.compress(data, level=5)
     >>> assert kanzi_tpu_torch.decompress(blob) == data
 """
 

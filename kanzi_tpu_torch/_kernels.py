@@ -46,9 +46,20 @@ _API = {
         "kz_pack_lanes_i32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
         "kz_decode_lanes": [_P, _I, _I, _P, _P, _P, _P],
     },
+    "ans.cu": {
+        "kz_ans_encode_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "kz_ans_encode_u16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "kz_ans_decode": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                          _P, _P, _P],
+    },
+    "range.cu": {
+        "kz_range_encode": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+        "kz_range_decode": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    },
 }
 
-KERNELS = ("histograms_u8", "entropy1024", "pack_lanes", "decode_lanes")
+KERNELS = ("histograms_u8", "entropy1024", "pack_lanes", "decode_lanes",
+           "ans_encode", "ans_decode", "range_encode", "range_decode")
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
 

@@ -47,25 +47,20 @@ def get_name(etype: int) -> str:
     return _NAME_BY_ID[etype]
 
 
-# entropy types with a device engine in kanzi_tpu that the port has not
-# brought over yet -> the ROADMAP.md slice that brings it
-_PENDING_DEVICE_ENGINES = {
-    ANS0_TYPE: "ROADMAP.md, Modules to port, item 6 (ANS slice)",
-    ANS1_TYPE: "ROADMAP.md, Modules to port, item 6 (ANS slice)",
-    RANGE_TYPE: "ROADMAP.md, Modules to port, item 7 (Range slice)",
-}
-
-
-def check_device_engine(etype: int) -> None:
-    """Raise NotImplementedError for an entropy type whose device engine
-    the port does not have yet. HUFFMAN runs on the device; NONE, FPAQ, CM,
-    TPAQ and TPAQX run on the host C++ engine even on the device path, as
-    they do in kanzi_tpu."""
-    slice_ = _PENDING_DEVICE_ENGINES.get(etype)
-    if slice_ is not None:
-        raise NotImplementedError(
-            f"no device engine for {get_name(etype)} yet ({slice_}); "
-            "use device=None for the host C++ engine")
+def device_engine(etype: int, device):
+    """The device entropy engine of `etype` on `device` (HUFFMAN, ANS0,
+    ANS1, RANGE), or None for the types that run on the host C++ engine on
+    the device path too (NONE, FPAQ, CM, TPAQ, TPAQX), as in kanzi_tpu."""
+    if etype == HUFFMAN_TYPE:
+        from .huffman_device import DeviceHuffmanEngine
+        return DeviceHuffmanEngine(device)
+    if etype in (ANS0_TYPE, ANS1_TYPE):
+        from .ans_device import DeviceANSEngine
+        return DeviceANSEngine(0 if etype == ANS0_TYPE else 1, device)
+    if etype == RANGE_TYPE:
+        from .range_device import DeviceRangeEngine
+        return DeviceRangeEngine(device)
+    return None
 
 
 def encode(etype: int, data, ctx: dict) -> tuple[bytes, int]:
@@ -109,10 +104,16 @@ def decode(etype: int, payload: bytes, out_len: int, ctx: dict) -> bytes:
     if device is not None and int(ctx.get("bsVersion", 6)) >= 6:
         # device entropy decode (byte-identical to the host path); a payload
         # the device path rejects raises, it is never retried on the host
-        check_device_engine(etype)
         if etype == HUFFMAN_TYPE:
             from .huffman_device import huffman_decode_device
             return huffman_decode_device(payload, out_len, device)
+        if etype in (ANS0_TYPE, ANS1_TYPE):
+            from .ans_device import ans_decode_device
+            return ans_decode_device(payload, out_len,
+                                     0 if etype == ANS0_TYPE else 1, device)
+        if etype == RANGE_TYPE:
+            from .range_device import range_decode_device
+            return range_decode_device(payload, out_len, device)
     if etype == HUFFMAN_TYPE:
         from .huffman import huffman_decode
         return huffman_decode(payload, out_len, ctx)

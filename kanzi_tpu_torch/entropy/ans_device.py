@@ -1,0 +1,228 @@
+"""Device-engine rANS encoder and decoder (ANS0/ANS1).
+
+Heterogeneous pipeline, as the Huffman engine's: the host (C++) normalizes
+per-chunk frequencies and writes the table headers (kz_ans_prepare); the
+device runs the 4-state reverse-order encode of every chunk of a batch in
+one kernel (ops.ans.encode_chunks); the host splices headers, varint
+sizes, final states, renorm pairs and raw tails into the payload
+(kz_ans_assemble). Decode mirrors it: the host parses the headers into
+freq->symbol maps and (freq, cumFreq) tables (kz_ans_dec_prepare), the
+device decodes every chunk of the block in one kernel
+(ops.ans.decode_chunks), the host places symbols and tails.
+
+Output is byte-identical to the host C++ encoder, so either engine can
+feed the KANZ container. `device` is a CUDA device (the kernels) or "cpu"
+(the plain PyTorch versions, used by the tests).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import native
+from ..core import ERR_PROCESS_BLOCK, KanziError
+from ..ops import ans as ops_ans
+from ..ops.state import to_port_state
+from . import device_io
+
+# blocks the engine hands to the host encoder: an order-1 chunk of 2 or 3
+# bytes, which the format cannot encode (the host encoder raises for it)
+counts = {"host_route": 0}
+
+
+def _chunk_size(order: int) -> int:
+    return native.ANS1_CHUNK if order == 1 else native.ANS0_CHUNK
+
+
+def _block_rows(post: np.ndarray, order: int, flags: np.ndarray):
+    """Symbol matrices of one block's device chunks: ([(G_c, 4)] per chunk,
+    the chunk indices)."""
+    chunk = _chunk_size(order)
+    build = ops_ans.build_syms_order1 if order == 1 else ops_ans.build_syms_order0
+    dev_chunks = np.nonzero(flags == 0)[0]
+    return [build(post[c * chunk:(c + 1) * chunk]) for c in dev_chunks], dev_chunks
+
+
+class DeviceANSEngine:
+    """Device entropy stage with async overlap, the DeviceHuffmanEngine
+    contract: dispatch()/dispatch_many() build the chunk batch on the host
+    and launch the encode kernel on the engine's own CUDA stream without
+    waiting; collect() waits on the batch's event and splices the payload
+    in C++ (kz_ans_assemble), byte-identical to the host encoder."""
+
+    def __init__(self, order: int, device):
+        if order not in (0, 1):
+            raise ValueError(f"ANS order must be 0 or 1, got {order}")
+        self.order = order
+        self.device = torch.device(device)
+        self._stream = (torch.cuda.Stream(device=self.device)
+                        if self.device.type == "cuda" else None)
+
+    def dispatch(self, post: np.ndarray):
+        """Start encoding one block. Returns an opaque handle."""
+        return self.dispatch_many([post])[0]
+
+    def dispatch_many(self, posts):
+        """Encode the chunks of every block in ONE kernel launch. Returns
+        one opaque handle per block, same contract as dispatch()."""
+        preps, batch = self.encode_batch(posts)
+        holder = self._launch(batch) if batch is not None else None
+        return [(post, prep, holder if nrows else None, lo, nrows)
+                for post, prep, lo, nrows in preps]
+
+    def encode_batch(self, posts):
+        """The host half of dispatch_many: per-block prep records and the
+        {ans_syms, ngroups, ans_tables} numpy batch of all device chunks,
+        or None when no chunk goes to the device. Rows round up to a
+        multiple of 4 and groups to 256, as the JAX engine buckets its
+        shapes (bounded zero padding)."""
+        preps = []
+        mats, all_tables = [], []
+        for post in posts:
+            if len(post) <= 32:          # raw small block, on the host
+                preps.append((post, None, 0, 0))
+                continue
+            try:
+                tables, hdr, hdr_bits, flags = native.ans_prepare(post, self.order)
+            except native.ShortANS1Chunk:
+                counts["host_route"] += 1
+                preps.append((post, "host", 0, 0))
+                continue
+            rows, dev_chunks = _block_rows(post, self.order, flags)
+            preps.append((post, (hdr, hdr_bits, flags, dev_chunks), len(mats),
+                          len(rows)))
+            mats += rows
+            all_tables.append(tables[dev_chunks])
+        if not mats:
+            return preps, None
+        nrows = len(mats)
+        rb = -(-nrows // 4) * 4
+        gb = -(-max(len(m) for m in mats) // 256) * 256
+        syms = np.zeros((rb, gb, 4), dtype=mats[0].dtype)
+        ngroups = np.zeros(rb, dtype=np.int32)
+        for r, m in enumerate(mats):
+            syms[r, :len(m)] = m
+            ngroups[r] = len(m)
+        tables = np.concatenate(all_tables)
+        if rb != nrows:
+            tables = np.concatenate(
+                [tables, np.zeros((rb - nrows,) + tables.shape[1:], tables.dtype)])
+        return preps, {"ans_syms": syms, "ngroups": ngroups, "ans_tables": tables}
+
+    def _launch(self, batch) -> device_io.HostResult:
+        def run():
+            st = to_port_state(batch, self.device)
+            return st, ops_ans.encode_chunks(st["ans_syms"], st["ngroups"],
+                                             st["ans_tables"])
+        return device_io.launch(self._stream, run)
+
+    def collect(self, handle, dst: np.ndarray, dst_off: int) -> int:
+        """Wait for the device result and splice the payload into dst.
+        Returns the payload's bit length."""
+        post, prep, holder, lo, nrows = handle
+        if prep is None:                 # raw small block
+            dst[dst_off:dst_off + len(post)] = post
+            return 8 * len(post)
+        if isinstance(prep, str):        # "host": the host encoder raises
+            payload, bits = native.entropy_encode(
+                5 if self.order == 0 else 8, post, {"bsVersion": 6})
+            dst[dst_off:dst_off + ((bits + 7) >> 3)] = np.frombuffer(payload, np.uint8)
+            return bits
+        hdr, hdr_bits, flags, dev_chunks = prep
+        nchunks = len(flags)
+        counts_ = np.zeros(nchunks, dtype=np.int32)
+        states = np.full((nchunks, 4), ops_ans.ANS_TOP, dtype=np.int32)
+        pair_bytes = np.zeros((nchunks, 0), dtype=np.uint8)
+        if holder is not None:
+            pairs, npairs, fin = (a[lo:lo + nrows] for a in holder.get())
+            maxp = int(npairs.max())
+            pair_bytes = np.zeros((nchunks, 2 * maxp), dtype=np.uint8)
+            pair_bytes[dev_chunks] = np.ascontiguousarray(
+                pairs[:, :maxp].view(np.uint16).astype(">u2")).view(np.uint8)
+            counts_[dev_chunks] = npairs
+            states[dev_chunks] = fin
+        return native.ans_assemble(post, self.order, hdr, hdr_bits, flags,
+                                   pair_bytes, counts_, states, dst, dst_off)
+
+
+def decode_batch(src: np.ndarray, out_len: int, order: int):
+    """The host half of ans_decode_device, for a payload of a block longer
+    than 32 bytes: ({bufs, nbytes, states0, f2s, dtabs, ngroups, lr} numpy
+    rows of the device chunks, or None where there are none; the prepare's
+    (bufs, flags, aux), views into pooled scratch that the next prepare
+    overwrites). Raises as ans_decode_device does."""
+    dtabs, f2s, states, bufs, buf_sz, flags, aux, lrs = \
+        native.ans_dec_prepare(src, out_len, order)
+    dev = np.nonzero(flags == 0)[0]
+    if not len(dev):
+        return None, (bufs, flags, aux)
+    chunk = _chunk_size(order)
+    sizes = np.minimum(chunk, out_len - dev * chunk)
+    ngroups = ((sizes & ~3) // 4).astype(np.int32)
+    nbytes = buf_sz[dev] - (sizes & 3)           # the pairs, before the tail
+    if (nbytes < 0).any():
+        raise KanziError("ans decode: a chunk's stream is shorter than its "
+                         "raw tail", ERR_PROCESS_BLOCK)
+    width = (256 if order == 1 else 1) << int(lrs[dev].max())
+    return ({"bufs": bufs[dev, :max(int(nbytes.max()), 1)], "nbytes": nbytes,
+             "states0": states[dev], "f2s": f2s[dev, :width],
+             "dtabs": dtabs[dev], "ngroups": ngroups, "lr": lrs[dev]},
+            (bufs, flags, aux))
+
+
+def ans_decode_device(payload, out_len: int, order: int, device) -> bytes:
+    """Decode an ANS payload with the device pipeline; the chunk decode
+    runs on `device`. Byte-identical to the host decoder, for any logRange
+    the stream's chunk headers carry. A payload that the host prepare
+    rejects raises RuntimeError; one whose renorm reads leave a chunk's
+    stream raises KanziError. Nothing is retried on the host."""
+    if out_len == 0:
+        return b""
+    device = torch.device(device)
+    src = np.frombuffer(payload, dtype=np.uint8) \
+        if not isinstance(payload, np.ndarray) else payload
+    if out_len <= 32:                    # raw small block
+        if len(src) < out_len:
+            raise RuntimeError("ans decode: payload shorter than the block")
+        return src[:out_len].tobytes()
+    batch, (bufs, flags, aux) = decode_batch(src, out_len, order)
+    chunk = _chunk_size(order)
+    out = np.empty(out_len, dtype=np.uint8)
+    if batch is not None:
+        # the prepare's pooled views are copied here, before the next call
+        st = to_port_state(batch, device)
+        syms, nread = ops_ans.decode_chunks(
+            st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
+            st["ngroups"], st["lr"], order, int(batch["ngroups"].max()))
+        syms = syms.cpu().numpy()
+        nread = nread.cpu().numpy()
+        if (nread < 0).any():
+            raise KanziError("ans decode: renorm reads left a chunk's stream",
+                             ERR_PROCESS_BLOCK)
+        for r, c in enumerate(np.nonzero(flags == 0)[0]):
+            start = int(c) * chunk
+            size = min(chunk, out_len - start)
+            g = int(batch["ngroups"][r])
+            e4 = 4 * g
+            if order == 0:
+                # group g -> block[4g..4g+3] = states 3, 2, 1, 0
+                out[start:start + e4] = syms[r, :g, ::-1].reshape(-1)
+            else:
+                for j in range(4):
+                    out[start + j * g:start + (j + 1) * g] = syms[r, :g, j]
+            nf = int(nread[r])
+            out[start + e4:start + size] = bufs[c, nf:nf + size - e4]
+    for c in np.nonzero(flags == 2)[0]:
+        start = int(c) * chunk
+        out[start:start + min(chunk, out_len - start)] = aux[c]
+    return out.tobytes()
+
+
+def ans_encode_device(buf, order: int, device) -> tuple[bytes, int]:
+    """Encode one block with the device pipeline, the Writer's own path:
+    one engine dispatch and one collect. Returns (payload, bits)."""
+    src = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
+    if len(src) == 0:
+        return b"", 0
+    return device_io.encode_block(DeviceANSEngine(order, device), src, 1 << 18)

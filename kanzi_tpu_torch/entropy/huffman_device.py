@@ -22,6 +22,7 @@ import torch
 from .. import native
 from ..ops import huffman as ops_huffman
 from ..ops.state import to_port_state
+from . import device_io
 
 _CHUNK = 16384
 _FRAG = ops_huffman.FRAG
@@ -136,20 +137,9 @@ class DeviceHuffmanEngine:
         return st, ops_huffman.pack_lanes(st["syms"], st["lane_len"],
                                           st["table_idx"], st["tables"])
 
-    def _launch(self, syms, lens, tidx, tables) -> "_PackResult":
-        if self._stream is None:
-            _st, (words, nbits) = self._pack(syms, lens, tidx, tables)
-            return _PackResult(words, nbits, None, None)
-        with torch.cuda.stream(self._stream):
-            st, (words, nbits) = self._pack(syms, lens, tidx, tables)
-            words_h = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
-            nbits_h = torch.empty(nbits.shape, dtype=nbits.dtype, pin_memory=True)
-            words_h.copy_(words, non_blocking=True)
-            nbits_h.copy_(nbits, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        # the device tensors stay referenced until the event has fired
-        return _PackResult(words_h, nbits_h, event, (st, words, nbits))
+    def _launch(self, syms, lens, tidx, tables) -> device_io.HostResult:
+        return device_io.launch(self._stream,
+                                lambda: self._pack(syms, lens, tidx, tables))
 
     def collect(self, handle, dst: np.ndarray, dst_off: int) -> int:
         """Wait for the device result and splice the payload into dst."""
@@ -163,26 +153,6 @@ class DeviceHuffmanEngine:
             lane_bytes = np.zeros((0, 4), dtype=np.uint8)
         return native.huffman_assemble(post, hdr, hdr_bits, flags,
                                        lane_bytes, nbits, dst, dst_off)
-
-
-class _PackResult:
-    """Host copies of one launch's words and bit counts, read once the
-    launch's event has fired."""
-
-    __slots__ = ("_words", "_nbits", "_event", "_keep", "_np")
-
-    def __init__(self, words, nbits, event, keep):
-        self._words, self._nbits = words, nbits
-        self._event, self._keep = event, keep
-        self._np = None
-
-    def get(self):
-        if self._np is None:
-            if self._event is not None:
-                self._event.synchronize()
-            self._np = (self._words.numpy(), self._nbits.numpy())
-            self._keep = None
-        return self._np
 
 
 def huffman_decode_device(payload, out_len: int, device) -> bytes:
@@ -229,8 +199,4 @@ def huffman_encode_device(buf, device) -> tuple[bytes, int]:
     src = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
     if len(src) == 0:
         return b"", 0
-    engine = DeviceHuffmanEngine(device)
-    handle = engine.dispatch(src)
-    dst = np.zeros(2 * len(src) + 65536, dtype=np.uint8)
-    bits = engine.collect(handle, dst, 0)
-    return dst[:(bits + 7) >> 3].tobytes(), bits
+    return device_io.encode_block(DeviceHuffmanEngine(device), src, 65536)

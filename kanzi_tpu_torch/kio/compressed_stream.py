@@ -20,9 +20,10 @@ primary data-parallel axis: the device entropy engine packs the lanes of a
 whole batch of blocks in one launch and the frames splice here in block
 order — the device-side analogue of the reference's lock-free ordered append.
 
-`device` selects the entropy engine: a CUDA device runs the HUFFMAN stage
-through the port's kernels, "cpu" through their plain PyTorch versions, and
-None runs the host C++ engine throughout.
+`device` selects the entropy engine: a CUDA device runs the HUFFMAN, ANS0,
+ANS1 and RANGE stages through the port's kernels, "cpu" through their plain
+PyTorch versions, and None runs the host C++ engine throughout. The other
+entropy types run on the host C++ engine on every path.
 """
 
 from __future__ import annotations
@@ -224,9 +225,10 @@ class Writer:
     v2/io/CompressedStream.go:216-256). `output` is a file-like object with
     write(); use kanzi_tpu_torch.compress() for bytes in, bytes out.
 
-    `device` ("cuda" by default) runs the HUFFMAN entropy stage on that
-    device; "cpu" runs the kernels' plain PyTorch versions; None runs the
-    host C++ engine. A "cuda" request without a card raises.
+    `device` ("cuda" by default) runs the HUFFMAN, ANS0, ANS1 and RANGE
+    entropy stages on that device; "cpu" runs the kernels' plain PyTorch
+    versions; None runs the host C++ engine. A "cuda" request without a
+    card raises.
     """
 
     def __init__(self, output, transform: str = "NONE", entropy: str = "NONE",
@@ -301,23 +303,20 @@ class Writer:
         self._scratch: np.ndarray | None = None
         self._bitpos = 0        # bit position within self._stream
         self._bits_total = 0    # bits written over the stream's lifetime
-        # device entropy engine: the device packs the Huffman lanes of a
-        # batch while the host transforms; entropy types without a device
-        # engine in kanzi_tpu run on the host C++ engine, those whose engine
-        # the port lacks yet raise
+        # device entropy engine: the device encodes the entropy stage of a
+        # batch while the host transforms the next; entropy types without a
+        # device engine in kanzi_tpu run on the host C++ engine
         self.device = _kernels.resolve_device(device)
         self._dev_engine = None
         self._dev_posts: list = []
         self._slot_scratch: list = []  # per-block scratch for parallel encode
         if self.device is not None:
-            entropy_mod.check_device_engine(self.entropy_type)
-            if self.entropy_type == entropy_mod.HUFFMAN_TYPE:
-                if not self._use_native:
-                    raise KanziError(
-                        "the device Huffman engine needs the native host "
-                        "library and no injected bitstream", ERR_INVALID_PARAM)
-                from ..entropy.huffman_device import DeviceHuffmanEngine
-                self._dev_engine = DeviceHuffmanEngine(self.device)
+            self._dev_engine = entropy_mod.device_engine(self.entropy_type,
+                                                         self.device)
+            if self._dev_engine is not None and not self._use_native:
+                raise KanziError(
+                    "the device entropy engines need the native host library "
+                    "and no injected bitstream", ERR_INVALID_PARAM)
 
     # -- events ----------------------------------------------------------
     def add_listener(self, bl) -> bool:
@@ -506,11 +505,12 @@ class Writer:
         self._block_id += len(blocks)
 
     def _process_batch_device(self, blocks) -> None:
-        """Heterogeneous batch: host C++ transforms + device Huffman lane pack.
+        """Heterogeneous batch: host C++ transforms + the device entropy
+        engine.
 
-        Phase 1 dispatches the device pack per block right after its
-        transform (async), so the device packs block i while the host
-        transforms block i+1; phase 2 collects and splices frames in order
+        Phase 1 transforms every block of the batch on the host, then
+        dispatches the device encode of all of them in one launch (async);
+        phase 2 collects and splices frames in order
         (the device-era analogue of the reference's processedBlockID
         ordering, v2/io/CompressedStream.go:934-949).
         """
@@ -654,9 +654,9 @@ class Reader:
     constant-memory in the stream size. Mirrors kio.NewReader
     (reference: v2/io/CompressedStream.go:1047-1110).
 
-    `device` ("cuda" by default) decodes HUFFMAN payloads on that device
-    through the per-block payload path; "cpu" uses the plain PyTorch
-    versions; None is the fully native host path.
+    `device` ("cuda" by default) decodes HUFFMAN, ANS0, ANS1 and RANGE
+    payloads on that device through the per-block payload path; "cpu" uses
+    the plain PyTorch versions; None is the fully native host path.
     """
 
     _REFILL = 1 << 20       # streaming read granularity
@@ -952,7 +952,7 @@ class Reader:
                                             self.entropy_type, self.ctx,
                                             self.block_size, self.checksum_bits,
                                             self._block_id, tuple(self.listeners))
-        except (KanziError, NotImplementedError):
+        except KanziError:
             raise
         except (ValueError, RuntimeError) as e:
             # a payload the decoders reject: the error contract of the

@@ -137,7 +137,7 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.kz_ans_assemble.restype = ctypes.c_int64
         lib.kz_ans_assemble.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
@@ -452,12 +452,18 @@ ANS1_CHUNK = 16384 << 8
 ANS_HDR_STRIDE = {0: 1024, 1: 131072}
 
 
+class ShortANS1Chunk(RuntimeError):
+    """An order-1 chunk of 2 or 3 bytes, which the format cannot encode
+    (the reference indexes before the chunk; the host encoder raises)."""
+
+
 def ans_prepare(data, order: int):
     """Per-chunk rANS tables + encoded headers for the device pipeline.
 
     Returns (tables (C, 5, dim*256) int32 [xMax, bias, cmplFreq, invShift,
     invFreq planes], hdr (C, stride) uint8, hdr_bits (C,) int32,
-    flags (C,) uint8). Caller guarantees len(data) > 32."""
+    flags (C,) uint8). Caller guarantees len(data) > 32. Raises
+    ShortANS1Chunk for an order-1 chunk of 2 or 3 bytes."""
     lib = get_lib()
     src = _as_buf(data)
     n = len(src)
@@ -472,6 +478,8 @@ def ans_prepare(data, order: int):
     c = lib.kz_ans_prepare(src.ctypes.data, n, order, tables.ctypes.data,
                            hdr.ctypes.data, stride, hdr_bits.ctypes.data,
                            flags.ctypes.data)
+    if c == -2:
+        raise ShortANS1Chunk("invalid ANS1 chunk size")
     if c < 0:
         raise RuntimeError(f"ans prepare failed (err={c})")
     return tables[:c], hdr[:c], hdr_bits[:c], flags[:c]
@@ -480,20 +488,22 @@ def ans_prepare(data, order: int):
 def ans_dec_prepare(payload, out_len: int, order: int):
     """Parse an ANS entropy payload into device-decodable pieces.
 
-    Returns (dtabs (C,2,dim*256) int32 [freq, cumFreq], f2s (C, dim*2^lr)
-    uint8, states (C,4) int32, bufs (C, stride) uint8 zero-guarded renorm
-    streams, flags (C,) uint8, aux (C,) uint8).
-    Raises on non-default logRange (caller falls back to host)."""
+    Returns (dtabs (C,2,dim*256) int32 [freq, cumFreq], f2s (C, dim*2^16)
+    uint8 [chunk c's map fills the first dim*2^lrs[c] bytes of its row],
+    states (C,4) int32, bufs (C, stride) uint8 zero-guarded renorm
+    streams, buf_sz (C,) int32 bytes of each stream [pairs and raw tail],
+    flags (C,) uint8, aux (C,) uint8, lrs (C,) int32 logRange per chunk).
+    Views into pooled scratch: the next call overwrites them."""
     lib = get_lib()
     src = _as_buf(payload)
     chunk = ANS1_CHUNK if order == 1 else ANS0_CHUNK
     dim = 256 if order == 1 else 1
-    lr = 11 if order == 1 else 12
     nchunks = max((out_len + chunk - 1) // chunk, 1)
     buf_stride = min(2 * chunk, 2 * out_len if out_len else 256) + 256
-    f2s_stride = dim * (1 << lr)
-    # pooled scratch: all planes fully written by the C++ side (bufs gets a
-    # 64-byte zero guard there); first-touch page faults are slow on some hosts
+    f2s_stride = dim << 16  # room for the largest logRange the format has
+    # pooled scratch: the C++ side writes every byte a decode reads (bufs
+    # gets a 64-byte zero guard; an f2s row past a chunk's dim << lr is never
+    # read); first-touch page faults are slow on some hosts
     dtabs = _get_scratch("adp_t", nchunks * 2 * dim * 256 * 4)[
         : nchunks * 2 * dim * 256 * 4].view(np.int32).reshape(nchunks, 2, dim * 256)
     f2s = _get_scratch("adp_f", nchunks * f2s_stride)[
@@ -504,14 +514,17 @@ def ans_dec_prepare(payload, out_len: int, order: int):
     buf_sz = np.empty(nchunks, dtype=np.int32)
     flags = np.empty(nchunks, dtype=np.uint8)
     aux = np.empty(nchunks, dtype=np.uint8)
+    lrs = np.empty(nchunks, dtype=np.int32)
     c = lib.kz_ans_dec_prepare(src.ctypes.data, len(src), out_len, order,
                                dtabs.ctypes.data, f2s.ctypes.data, f2s_stride,
                                states.ctypes.data, bufs.ctypes.data,
                                buf_stride, buf_sz.ctypes.data,
-                               flags.ctypes.data, aux.ctypes.data)
+                               flags.ctypes.data, aux.ctypes.data,
+                               lrs.ctypes.data)
     if c < 0:
         raise RuntimeError(f"ans decode prepare failed (err={c})")
-    return dtabs[:c], f2s[:c], states[:c], bufs[:c], flags[:c], aux[:c]
+    return (dtabs[:c], f2s[:c], states[:c], bufs[:c], buf_sz[:c], flags[:c],
+            aux[:c], lrs[:c])
 
 
 def ans_assemble(block: np.ndarray, order: int, hdr: np.ndarray,

@@ -589,20 +589,21 @@ extern "C" int kz_ans_prepare(const uint8_t* block, int64_t len, int order,
 // varint sizes, initial states, renorm byte streams) so the 4-state forward
 // decode can run batched on the device (kanzi_tpu/ops/ans.py decode_chunks).
 // flags: 0 = device chunk, 2 = order-0 single-symbol chunk (value in aux).
-// Returns the chunk count, or -2 if a chunk uses a non-default logRange
-// (caller falls back to the host decoder).
+// lrs: each chunk's logRange (8..16; the stream's header carries it, and an
+// encoder may use another than the default 12 or 11). A chunk's map fills
+// the first dim << lr bytes of its f2s row. Returns the chunk count, or a
+// negative error code.
 extern "C" int kz_ans_dec_prepare(const uint8_t* payload, int64_t payloadBytes,
                                   int64_t outLen, int order,
                                   int32_t* dtabs, uint8_t* f2s, int64_t f2sStride,
                                   int32_t* states, uint8_t* bufs,
                                   int64_t bufStride, int32_t* bufSz,
-                                  uint8_t* flags, uint8_t* aux) {
+                                  uint8_t* flags, uint8_t* aux, int32_t* lrs) {
     try {
         using namespace kz;
         int chunkSize = order == 1
             ? std::min(ANS0_CHUNK_SIZE << 8, ANS_MAX_CHUNK_SIZE)
             : ANS0_CHUNK_SIZE;
-        u32 expectLr = std::max(ANS_DEFAULT_LOG_RANGE - (u32)order, 8u);
         size_t dim = order == 1 ? 256 : 1;
         IBS ibs(payload, payloadBytes);
         std::vector<i32> freqs(dim * 256);
@@ -620,8 +621,8 @@ extern "C" int kz_ans_dec_prepare(const uint8_t* payload, int64_t payloadBytes,
                                               freqs.data(), symbols.data(),
                                               f2sLocal, alphabet);
             if (alpha == 0) return -3;
-            if (logRange != expectLr) return -2;
             if ((i64)f2sLocal.size() > f2sStride) return -4;
+            lrs[c] = (i32)logRange;
             if (order == 0 && alpha == 1) {
                 flags[c] = 2;
                 aux[c] = (u8)alphabet[0];

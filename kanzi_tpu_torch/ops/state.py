@@ -1,11 +1,11 @@
 """Carry the device ops' state from numpy arrays into tensors.
 
 The codec's device ops take state that the host C++ runtime builds (code
-tables, decode tables, lane rows). ``to_port_state`` takes those numpy
-arrays, as kanzi_tpu feeds them to its device ops, and returns tensors in
-the dtypes the port's kernels take, on `device`. Every array is copied:
-``native.huffman_dec_prepare`` returns views into a pooled scratch buffer
-that the next prepare call overwrites.
+tables, decode tables, lane rows, chunk symbol matrices, renorm streams).
+``to_port_state`` takes those numpy arrays, as kanzi_tpu feeds them to its
+device ops, and returns tensors in the dtypes the port's kernels take, on
+`device`. Every array is copied: the host's decode prepares return views
+into pooled scratch buffers that the next prepare call overwrites.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ import torch
 
 from .. import _kernels
 
-# name -> (expected ndim, dtype the kernels take); None keeps u8/i32 symbols
+# name -> (expected ndim, dtype the kernels take); None keeps the symbol
+# dtypes listed in _SYMS
 _SPEC = {
+    # Huffman (ops/huffman.py)
     "tables": (2, torch.int32),      # (C, 256) (len<<12)|code, u16 or i32
     "dtables": (2, torch.int16),     # (C, 4096) u16 (sym<<8)|len, as i16 bits
     "syms": (2, None),               # (L, FRAG) uint8 or int32 lane symbols
@@ -24,7 +26,26 @@ _SPEC = {
     "lane_len": (1, torch.int32),    # (L,)
     "table_idx": (1, torch.int32),   # (L,)
     "blocks": (2, torch.uint8),      # (B, N) raw blocks
+    # rANS (ops/ans.py)
+    "ans_syms": (3, None),           # (R, G, 4) uint8 (order 0) or u16 (order 1)
+    "ngroups": (1, torch.int32),     # (R,) symbol groups per chunk
+    "ans_tables": (3, torch.int32),  # (R, 5, S) xMax, bias, cmplFreq, invShift, invFreq
+    "bufs": (2, torch.uint8),        # (R, S) renorm byte streams
+    "nbytes": (1, torch.int32),      # (R,) bytes of each row's stream
+    "states0": (2, torch.int32),     # (R, 4) initial states, u32 bits
+    "f2s": (2, torch.uint8),         # (R, F) freq slot -> symbol
+    "dtabs": (3, torch.int32),       # (R, 2, T) freq, cumFreq
+    "lr": (1, torch.int32),          # (R,) logRange per chunk, 8..16
+    # range (ops/range.py)
+    "rng_syms": (2, torch.uint8),    # (R, N) chunk bytes
+    "nvalid": (1, torch.int32),      # (R,) valid bytes per chunk
+    "rng_tables": (3, torch.int32),  # (R, 2, 256) cumFreq, freq
+    "shifts": (1, torch.int32),      # (R,) logRange per chunk
 }
+
+# symbol arrays: numpy dtype -> the tensor dtype carrying its bits
+_SYMS = {"syms": {np.dtype(np.uint8): np.uint8, np.dtype(np.int32): np.int32},
+         "ans_syms": {np.dtype(np.uint8): np.uint8, np.dtype(np.uint16): np.int16}}
 
 
 def _convert(name: str, arr, device: torch.device) -> torch.Tensor:
@@ -36,9 +57,12 @@ def _convert(name: str, arr, device: torch.device) -> torch.Tensor:
         if a.dtype != np.uint16:
             raise TypeError(f"dtables: dtype {a.dtype}, expected uint16")
         a = a.view(np.int16)
-    elif name == "syms":
-        if a.dtype not in (np.uint8, np.int32):
-            raise TypeError(f"syms: dtype {a.dtype}, expected uint8 or int32")
+    elif name in _SYMS:
+        carry = _SYMS[name].get(a.dtype)
+        if carry is None:
+            raise TypeError(f"{name}: dtype {a.dtype}, expected one of "
+                            f"{sorted(str(d) for d in _SYMS[name])}")
+        a = a.view(carry)
     elif dtype == torch.uint8:
         if a.dtype != np.uint8:
             raise TypeError(f"{name}: dtype {a.dtype}, expected uint8")
@@ -50,8 +74,8 @@ def _convert(name: str, arr, device: torch.device) -> torch.Tensor:
 
 
 def to_port_state(arrays: dict, device) -> dict:
-    """{name: numpy array} -> {name: tensor on `device`}, for the names
-    tables, dtables, syms, lanes, lane_len, table_idx and blocks."""
+    """{name: numpy array} -> {name: tensor on `device`}, for the names of
+    _SPEC."""
     device = _kernels.resolve_device(device)
     if device is None:
         raise ValueError("to_port_state needs a device: 'cuda' or 'cpu'")

@@ -14,8 +14,10 @@ import torch
 
 import kanzi_tpu_torch as kt
 from kanzi_tpu_torch import _kernels, native
+from kanzi_tpu_torch.entropy import ans_device, range_device
 from kanzi_tpu_torch.entropy.huffman_device import huffman_decode_device
-from kanzi_tpu_torch.ops import block_stats, huffman as ops_huffman
+from kanzi_tpu_torch.ops import ans as ops_ans, block_stats, huffman as ops_huffman
+from kanzi_tpu_torch.ops import range as ops_range
 from kanzi_tpu_torch.ops.state import to_port_state
 
 pytestmark = pytest.mark.gpu
@@ -95,4 +97,71 @@ def test_slice_on_card(card, level):
     assert kt.decompress(blob) == data
     assert _kernels.launches["pack_lanes"] > 0
     assert _kernels.launches["decode_lanes"] > 0
+    assert sum(_kernels.plain_calls.values()) == 0
+
+
+def _both(fn, arrays, keys, card, *extra):
+    """fn on the plain route (CPU tensors) and the kernel route (card)."""
+    cpu = to_port_state(arrays, "cpu")
+    gpu = to_port_state(arrays, card)
+    want = fn(*(cpu[k] for k in keys), *extra)
+    got = fn(*(gpu[k] for k in keys), *extra)
+    torch.cuda.synchronize()
+    return [g.cpu() for g in got], list(want)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_ans_kernels_match_plain(card, order):
+    data = np.frombuffer(_text(40000), np.uint8)
+    _preps, arrays = ans_device.DeviceANSEngine(order, "cpu").encode_batch([data])
+    got, want = _both(ops_ans.encode_chunks, arrays,
+                      ("ans_syms", "ngroups", "ans_tables"), card)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    payload, _ = ans_device.ans_encode_device(data, order, card)
+    assert payload == native.entropy_encode(5 if order == 0 else 8, data,
+                                            {"bsVersion": 6})[0]
+    _kernels.reset_counts()
+    assert ans_device.ans_decode_device(payload, len(data), order, card) == data.tobytes()
+    assert _kernels.launches["ans_decode"] == 1
+
+
+def test_range_kernels_match_plain(card):
+    data = np.frombuffer(_text(70000), np.uint8)
+    _preps, arrays = range_device.DeviceRangeEngine("cpu").encode_batch([data])
+    C = range_device._CHUNK
+    got, want = _both(ops_range.encode_chunks, arrays,
+                      ("rng_syms", "nvalid", "rng_tables", "shifts"), card)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    payload, _ = range_device.range_encode_device(data, card)
+    assert payload == native.entropy_encode(4, data, {"bsVersion": 6})[0]
+    # the first chunk's coder stream, kernel against plain
+    src = np.frombuffer(payload, np.uint8)
+    hdr_end, t, f2s, shift, _flag, _aux, buf = native.range_dec_chunk(
+        src, 0, 2 * C + 8192)
+    nb = (8 * len(src) - hdr_end + 7) >> 3
+    arrays = {"bufs": buf[None, :nb], "nbytes": np.array([nb], np.int32),
+              "rng_tables": t[None], "f2s": f2s[None],
+              "shifts": np.array([shift], np.int32),
+              "nvalid": np.array([C], np.int32)}
+    got, want = _both(ops_range.decode_chunks, arrays,
+                      ("bufs", "nbytes", "rng_tables", "f2s", "shifts", "nvalid"),
+                      card, C)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert range_device.range_decode_device(payload, len(data), card) == data.tobytes()
+
+
+@pytest.mark.parametrize("kw", [dict(level=5),
+                                dict(entropy="ANS1", transform="NONE"),
+                                dict(entropy="RANGE", transform="LZ")])
+def test_ans_range_slice_on_card(card, kw):
+    rng = np.random.default_rng(5)
+    data = _text(300000) + rng.integers(0, 4, 300000, dtype=np.uint8).tobytes()
+    _kernels.reset_counts()
+    blob = kt.compress(data, checksum=32, block_size=1 << 18, jobs=2, **kw)
+    assert blob == kt.compress(data, checksum=32, block_size=1 << 18, jobs=2,
+                               device=None, **kw)
+    assert kt.decompress(blob) == data
+    name = "range" if kw.get("entropy") == "RANGE" else "ans"
+    assert _kernels.launches[f"{name}_encode"] > 0
+    assert _kernels.launches[f"{name}_decode"] > 0
     assert sum(_kernels.plain_calls.values()) == 0

@@ -1,0 +1,203 @@
+"""Range-coder ops and the device range engine of the PyTorch port against
+the JAX package: encode_chunks and decode_chunks equal kanzi_tpu.ops.range
+exactly on the same seeded inputs; the engine's payloads equal the host
+C++ encoder's and kanzi_tpu's device engine's, at 32 KiB chunk edges, with
+reduced logRange on small final chunks and on degenerate chunks; the
+sequential chunk walk decodes them; a corrupted block raises."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from kanzi_tpu import native as jax_native
+from kanzi_tpu.entropy import range_device as jax_range_device
+from kanzi_tpu.ops import range as jax_range
+import kanzi_tpu_torch as kt
+from kanzi_tpu_torch import _kernels, native
+from kanzi_tpu_torch.core import ERR_CRC_CHECK, ERR_PROCESS_BLOCK, KanziError
+from kanzi_tpu_torch.entropy import range_device
+from kanzi_tpu_torch.ops import range as ops_range
+from kanzi_tpu_torch.ops.state import to_port_state
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+with open(os.path.join(ROOT, "SURVEY.md"), "rb") as _fh:
+    _TEXT = _fh.read()
+
+CHUNK = range_device._CHUNK
+
+
+def _pieces():
+    """Single chunks: text (logRange 12), random bytes (11: the chunk is
+    shorter than 4096), and a small near-uniform chunk whose normalization
+    needs the header repair (logRange 8)."""
+    rng = np.random.default_rng(99)
+    return [np.frombuffer(_TEXT[:6000], np.uint8),
+            rng.integers(0, 256, 3000, dtype=np.uint8),
+            rng.integers(0, 200, 500, dtype=np.uint8)]
+
+
+def _cases():
+    rng = np.random.default_rng(4)
+    return {
+        "text": _TEXT[:40000],
+        "random": rng.integers(0, 256, 20000, dtype=np.uint8).tobytes(),
+        "narrow": rng.integers(0, 8, 40000, dtype=np.uint8).tobytes(),
+        "const": b"z" * 30000,
+        "small": rng.integers(0, 256, 100, dtype=np.uint8).tobytes(),
+        "chunk_edge": rng.integers(0, 256, 16384 + 33, dtype=np.uint8).tobytes(),
+        "n31": rng.integers(0, 256, 31, dtype=np.uint8).tobytes(),
+        "chunk32k_edge": rng.integers(0, 256, CHUNK + 97, dtype=np.uint8).tobytes(),
+        "two_chunks_text": (_TEXT * 3)[:(1 << 16) + 1234],
+        "degenerate": rng.integers(0, 200, 500, dtype=np.uint8).tobytes(),
+    }
+
+
+def test_encode_chunks_match_jax():
+    pieces = _pieces()
+    N = max(len(p) for p in pieces)
+    R = len(pieces) + 1                          # and one padded row
+    syms = np.zeros((R, N), np.uint8)
+    nvalid = np.zeros(R, np.int32)
+    tables = np.zeros((R, 2, 256), np.int32)
+    shifts = np.full(R, 12, np.int32)
+    for r, p in enumerate(pieces):
+        t, _hdr, _bits, flags, sh = native.range_prepare(p)
+        assert flags[0] == 0
+        syms[r, :len(p)] = p
+        nvalid[r] = len(p)
+        tables[r], shifts[r] = t[0], sh[0]
+    assert shifts[:3].tolist() == [12, 11, 8]
+    want = jax_range.encode_chunks(syms.astype(np.int32), nvalid, tables,
+                                   shifts.astype(np.uint32))
+    st = to_port_state({"rng_syms": syms, "nvalid": nvalid,
+                        "rng_tables": tables, "shifts": shifts}, "cpu")
+    _kernels.reset_counts()
+    words, nwords, lows = ops_range.encode_chunks(
+        st["rng_syms"], st["nvalid"], st["rng_tables"], st["shifts"])
+    assert _kernels.plain_calls["range_encode"] == 1
+    assert _kernels.launches["range_encode"] == 0
+    assert words.dtype == torch.int32 and words.shape == (R, 2 * N)
+    assert np.array_equal(words.numpy().view(np.uint32), np.asarray(want[0]))
+    assert np.array_equal(nwords.numpy(), np.asarray(want[1]))
+    assert np.array_equal(lows.numpy().view(np.uint32), np.asarray(want[2]))
+    assert nwords[-1] == 0 and not lows[-1].any()
+
+
+def _chunk_rows(payloads, buf_cap=2 * CHUNK + 8192):
+    """The first chunk of each payload as one batch: the port's rows (with
+    their byte counts) and kanzi_tpu's."""
+    port = {k: [] for k in ("bufs", "nbytes", "rng_tables", "f2s", "shifts")}
+    jrows = {k: [] for k in ("bufs", "tables", "f2s", "shifts")}
+    for payload in payloads:
+        src = np.frombuffer(payload, np.uint8)
+        hdr_end, t, f2s, shift, flag, _aux, buf = native.range_dec_chunk(src, 0, buf_cap)
+        assert flag == 0
+        nb = (min(8 * len(src) - hdr_end, 8 * (buf_cap - 16)) + 7) >> 3
+        port["bufs"].append(buf)
+        port["nbytes"].append(nb)
+        port["rng_tables"].append(t)
+        port["f2s"].append(f2s)
+        port["shifts"].append(shift)
+        _e, jt, jf, jsh, _jfl, _ja, jbuf = jax_native.range_dec_chunk(src, 0, buf_cap)
+        for k, v in zip(("bufs", "tables", "f2s", "shifts"), (jbuf, jt, jf, jsh)):
+            jrows[k].append(v)
+    port = {k: np.array(v, np.int32 if k in ("nbytes", "shifts") else None)
+            for k, v in port.items()}
+    jrows = {k: np.array(v, np.uint32 if k == "shifts" else None)
+             for k, v in jrows.items()}
+    return port, jrows
+
+
+def test_decode_chunks_match_jax():
+    pieces = _pieces()
+    payloads = [native.entropy_encode(4, p, {"bsVersion": 6})[0] for p in pieces]
+    port, jrows = _chunk_rows(payloads)
+    nvalid = np.array([len(p) for p in pieces], np.int32)
+    glen = int(nvalid.max())
+    want_syms, want_nreads = jax_range.decode_chunks(
+        jrows["bufs"], jrows["tables"], jrows["f2s"], jrows["shifts"], nvalid,
+        glen=glen)
+    port["nvalid"] = nvalid
+    st = to_port_state(port, "cpu")
+    syms, nreads = ops_range.decode_chunks(st["bufs"], st["nbytes"], st["rng_tables"],
+                                           st["f2s"], st["shifts"], st["nvalid"], glen)
+    assert syms.dtype == torch.uint8 and syms.shape == (len(pieces), glen)
+    assert np.array_equal(syms.numpy(), np.asarray(want_syms))
+    assert np.array_equal(nreads.numpy(), np.asarray(want_nreads))
+    for r, p in enumerate(pieces):
+        assert np.array_equal(syms[r, :len(p)].numpy(), p)
+    # a row whose byte count ends before its last read sets the error flag;
+    # the rows beside it decode as before
+    port["nbytes"][0] = (60 + 28 * int(nreads[0]) - 1) >> 3
+    st = to_port_state(port, "cpu")
+    syms2, nreads2 = ops_range.decode_chunks(st["bufs"], st["nbytes"], st["rng_tables"],
+                                             st["f2s"], st["shifts"], st["nvalid"], glen)
+    assert nreads2[0] == -1
+    assert torch.equal(nreads2[1:], nreads[1:]) and torch.equal(syms2[1:], syms[1:])
+
+
+def _jax_engine_encode(data):
+    eng = jax_range_device.DeviceRangeEngine()
+    dst = np.zeros(2 * len(data) + 8192, np.uint8)
+    bits = eng.collect(eng.dispatch(np.frombuffer(data, np.uint8)), dst, 0)
+    return dst[:(bits + 7) >> 3].tobytes(), bits
+
+
+def test_engine_matches_host_and_jax():
+    cases = _cases()
+    posts = [np.frombuffer(d, np.uint8) for d in cases.values()]
+    _kernels.reset_counts()
+    engine = range_device.DeviceRangeEngine("cpu")
+    handles = engine.dispatch_many(posts)          # one batch, one plain call
+    assert _kernels.plain_calls["range_encode"] == 1
+    for (name, data), post, handle in zip(cases.items(), posts, handles):
+        host = native.entropy_encode(4, post, {"bsVersion": 6})
+        dst = np.zeros(2 * len(data) + 8192, np.uint8)
+        bits = engine.collect(handle, dst, 0)
+        got = (dst[:(bits + 7) >> 3].tobytes(), bits)
+        assert got == host, name
+        assert got == _jax_engine_encode(data), name
+        if name == "small":   # the one-shot encode is one dispatch + collect
+            assert range_device.range_encode_device(data, "cpu") == host
+    assert _kernels.launches["range_encode"] == 0
+
+
+@pytest.mark.parametrize("name", ["small", "n31", "const", "degenerate",
+                                  "chunk32k_edge"])
+def test_chunk_walk_decodes(name):
+    data = _cases()[name]
+    payload, _ = native.entropy_encode(4, np.frombuffer(data, np.uint8),
+                                       {"bsVersion": 6})
+    _kernels.reset_counts()
+    assert range_device.range_decode_device(payload, len(data), "cpu") == data
+    assert jax_range_device.range_decode_device(payload, len(data)) == data
+    # one device decode per chunk that is not a single symbol
+    nchunks = -(-len(data) // CHUNK)
+    assert _kernels.plain_calls["range_decode"] == (0 if name == "const" else nchunks)
+
+
+def test_corrupted_range_block_raises_without_host_fallback(monkeypatch):
+    rng = np.random.default_rng(42)
+    data = _TEXT[:20000] + rng.integers(0, 4, 20000, dtype=np.uint8).tobytes()
+    blob = kt.compress(data, transform="NONE", entropy="RANGE", block_size=1 << 17,
+                       checksum=32, device=None)
+    from kanzi_tpu_torch.entropy import range_codec as host_range
+
+    def no_host(*_a, **_k):
+        raise AssertionError("the host range decoder ran on the device path")
+
+    monkeypatch.setattr(host_range, "range_decode", no_host)
+    monkeypatch.setattr(native, "entropy_decode", no_host)
+    assert kt.decompress(blob, device="cpu") == data
+    # a header the chunk parse rejects, renorm reads past the payload (the
+    # kernel's error flag), and a decode that fails the checksum
+    for pos, code, msg in ((40, ERR_PROCESS_BLOCK, "prepare"),
+                           (len(blob) // 2, ERR_PROCESS_BLOCK, "renorm reads"),
+                           (len(blob) - 40, ERR_CRC_CHECK, "checksum")):
+        bad = bytearray(blob)
+        bad[pos] ^= 0xFF
+        with pytest.raises(KanziError, match=msg) as ei:
+            kt.decompress(bytes(bad), device="cpu")
+        assert ei.value.code == code, (pos, str(ei.value))

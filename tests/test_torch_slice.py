@@ -94,7 +94,7 @@ def test_writer_reader_match_reference(transform, block_size, checksum, jobs, sk
     assert kanzi_tpu.decompress(port) == data
 
 
-@pytest.mark.parametrize("level", [2, 3])
+@pytest.mark.parametrize("level", [2, 3, 5])
 def test_levels_match_reference(level):
     data = _mixed(300000, seed=level)
     port = kt.compress(data, level=level, checksum=32, device="cpu")
@@ -149,14 +149,47 @@ def test_host_entropy_types_run_on_host_engine(entropy):
 
 @pytest.mark.parametrize("entropy", ["ANS0", "ANS1", "RANGE"])
 def test_pending_device_engines_raise(entropy):
+    """ANS0, ANS1 and RANGE on device="cpu": the stream equals kanzi_tpu's
+    host and device-engine streams and decodes, through the plain versions
+    of the ANS or range kernels."""
     data = _mixed(40000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kt.compress(data, transform="NONE", entropy=entropy, device="cpu")
-    blob = kt.compress(data, transform="NONE", entropy=entropy, device=None)
+    name = "range" if entropy == "RANGE" else "ans"
+    _kernels.reset_counts()
+    blob = kt.compress(data, transform="NONE", entropy=entropy, device="cpu")
+    assert _kernels.plain_calls[f"{name}_encode"] == 1
     assert blob == kanzi_tpu.compress(data, transform="NONE", entropy=entropy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kt.decompress(blob, device="cpu")
+    assert blob == _jax_device_stream(data, transform="NONE", entropy=entropy)
+    assert blob == kt.compress(data, transform="NONE", entropy=entropy, device=None)
+    assert kt.decompress(blob, device="cpu") == data
+    assert _kernels.plain_calls[f"{name}_decode"] > 0
+    assert sum(_kernels.launches.values()) == 0
     assert kt.decompress(blob, device=None) == data
+
+
+@pytest.mark.parametrize("entropy,transform,block_size", [
+    ("ANS0", "NONE", 1 << 18),
+    ("ANS0", "TEXT+UTF+BWT+RANK+ZRLT", 1 << 18),   # level-5 chain
+    ("ANS1", "NONE", 1 << 15),
+    ("ANS1", "DNA+LZ", 1 << 15),
+    ("RANGE", "LZ", 1 << 15),
+])
+def test_ans_range_writer_reader_match_reference(entropy, transform, block_size):
+    # the cases of kanzi_tpu's tests/test_device_engine.py, with ANS1 and
+    # RANGE blocks cut to 32 KiB to keep the plain loops short
+    data = _mixed(2 * block_size + 7777, seed=7)
+    kw = dict(transform=transform, entropy=entropy, block_size=block_size,
+              checksum=32, jobs=2)
+    w = Writer(None, file_size=len(data), device="cpu", **kw)
+    assert type(w._dev_engine).__name__ == (
+        "DeviceRangeEngine" if entropy == "RANGE" else "DeviceANSEngine")
+    w.write(data)
+    w.close()
+    port = w.getvalue()
+    assert port == kanzi_tpu.compress(data, **kw)
+    assert port == _jax_device_stream(data, **kw)
+    r = Reader(port, device="cpu")
+    assert r.read_all() == data
+    assert kanzi_tpu.decompress(port) == data
 
 
 def _corrupt_huffman_block():
@@ -219,6 +252,8 @@ def test_cuda_without_a_card_raises():
     for call in (lambda: kt.compress(data, level=2),
                  lambda: kt.decompress(blob),
                  lambda: Writer(None, entropy="HUFFMAN"),
+                 lambda: Writer(None, entropy="ANS1"),
+                 lambda: kt.compress(data, entropy="RANGE"),
                  lambda: Reader(blob),
                  lambda: kt.entry(),
                  lambda: parallel.compress_step(
