@@ -10,7 +10,9 @@ Phases, each failing hard (no exception is caught):
 2. kernels: each of the eight kernels against its plain PyTorch version
    on the card, at the shapes of the main path, with its median time from
    CUDA events, its roofline bound and (where one exists) the time of one
-   PyTorch library call computing the same function;
+   PyTorch library call computing the same function; the decode kernels'
+   ns per symbol, and the RANGE chunk walk's host time per chunk beside
+   the range decode kernel's;
 3. the slice: a 64 MiB seeded corpus through compress/decompress at levels
    2, 3 and 5 on the card, and its first 16 MiB through the ANS1 and RANGE
    codecs, byte-identical to the host C++ path, each path read by the
@@ -183,6 +185,7 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
                ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 0, glen), 10),
                plain_ms=median_ms(torch, lambda: ops_ans._decode_chunks_plain(*a, 0, glen), 1, 0),
                bound_ms=bms, bound_by=bby, library_ms=None)
+    dec["ns_per_step"] = dec["ms"] * 1e6 / nsym
     del st, a
 
     # order 1 (ANS1): the kernels timed at the Writer's shape (four raw
@@ -205,9 +208,11 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     st = to_port_state(batch, cuda)
     a = (st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
          st["ngroups"], st["lr"])
-    bms, bby = bound(nbytes_of(*a) + glen * 4 + 4, 48 * int(batch["ngroups"].sum()))
+    nsym = 4 * int(batch["ngroups"].sum())
+    bms, bby = bound(nbytes_of(*a) + glen * 4 + 4, 12 * nsym)
     dec["order1"] = dict(shape=[1, glen, 4], bound_ms=bms, bound_by=bby,
                          ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 1, glen), 3))
+    dec["order1"]["ns_per_step"] = dec["order1"]["ms"] * 1e6 / nsym
     del st, a
     small = raw[0][:32768]
     _, batch = eng1.encode_batch([small])
@@ -258,12 +263,29 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     glen = range_device._CHUNK
     err = hold(torch, ops_range.decode_chunks, ops_range._decode_chunks_plain, a, (glen,))
     bms, bby = bound(nbytes_of(*a) + glen + 4, 30 * glen)
-    results["range_decode"] = dict(
+    r = results["range_decode"] = dict(
         source="kanzi_tpu_torch/csrc/range.cu", replaces="kanzi_tpu/ops/range.py:186",
         shape=[1, glen], max_abs_err=err,
         ms=median_ms(torch, lambda: ops_range.decode_chunks(*a, glen), 20),
         plain_ms=median_ms(torch, lambda: ops_range._decode_chunks_plain(*a, glen), 1, 0),
         bound_ms=bms, bound_by=bby, library_ms=None)
+    r["ns_per_step"] = r["ms"] * 1e6 / glen
+    # the Reader's chunk walk over the whole block: host clock per chunk
+    # beside the kernel's device time, so the host share of a step shows
+    n = len(posts_lz[0])
+    range_device.range_decode_device(payload, n, cuda)
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        back = range_device.range_decode_device(payload, n, cuda)
+        walls.append((time.perf_counter() - t) * 1e3)
+    check(back == posts_lz[0].tobytes(), "range chunk walk != input")
+    chunks = -(-n // glen)
+    per_chunk = statistics.median(walls) / chunks
+    print(f"range chunk walk: {n} bytes, {chunks} chunks, wall {statistics.median(walls)} "
+          f"ms (runs {walls}), {per_chunk} ms per chunk, of which range_decode "
+          f"{r['ms']} ms on the device: host share {per_chunk - r['ms']} ms per chunk",
+          flush=True)
 
 
 def run_path(torch, kt, K, label, data, reps, kw, kernels) -> dict:
@@ -477,12 +499,16 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}), library {r['library_ms']}, "
               f"max_abs_err {r['max_abs_err']}", flush=True)
+        if "ns_per_step" in r:
+            print(f"  {name}: {r['ns_per_step']} ns per symbol", flush=True)
         if "order1" in r:
             o = r["order1"]
             print(f"  {name} order 1: kernel {o['ms']:.4f} ms at shape "
                   f"{o['shape']}, bound {o['bound_ms']:.6f} ms ({o['bound_by']}); "
                   f"held against plain on one 32 KiB chunk, shape "
                   f"{o['held_on']}, plain {o['plain_ms']:.4f} ms", flush=True)
+            if "ns_per_step" in o:
+                print(f"  {name} order 1: {o['ns_per_step']} ns per symbol", flush=True)
     phase_s["kernels"] = time.perf_counter() - t_phase
 
     # -- 3. the slice: Writer/Reader on the card --------------------------

@@ -50,13 +50,17 @@ _API = {
         "kz_ans_encode_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
         "kz_ans_encode_u16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
         "kz_ans_decode": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-                          _P, _P, _P],
+                          _P, _P, _P, _I, _P],
+        "kz_ans_decode_scratch": [_I, _I, _I, _I],
     },
     "range.cu": {
         "kz_range_encode": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
         "kz_range_decode": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     },
 }
+
+# functions that return a value, not cudaGetLastError()
+_RESTYPE = {"kz_ans_decode_scratch": ctypes.c_int64}
 
 KERNELS = ("histograms_u8", "entropy1024", "pack_lanes", "decode_lanes",
            "ans_encode", "ans_decode", "range_encode", "range_decode")
@@ -160,7 +164,7 @@ def _fn(name: str):
                 for fname, argtypes in api.items():
                     fn = getattr(lib, fname)
                     fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+                    fn.restype = _RESTYPE.get(fname, ctypes.c_int)
                     _fns[fname] = fn
     return _fns[name]
 
@@ -174,6 +178,11 @@ def launch(kernel: str, cfunc: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{cfunc}: CUDA launch failed with error {rc}")
     launches[kernel] += 1
+
+
+def query(cfunc: str, *args):
+    """Call a host function of a kernel library (no launch, no count)."""
+    return _fn(cfunc)(*args)
 
 
 def check(t: torch.Tensor, name: str, dtypes, ndim: int,

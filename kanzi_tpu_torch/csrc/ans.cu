@@ -18,13 +18,26 @@
 //
 // K6 kz_ans_decode replaces kanzi_tpu/ops/ans.py: decode_chunks, a lax.scan
 // over groups decoding states 3, 2, 1, 0 that share one byte cursor.
-// Bound: bytes on the roofline; in practice latency, since every symbol
-// is a dependent chain (slot -> freq-to-symbol map -> freq/cumFreq ->
-// state, and the cursor links the states). Design: one thread per chunk;
-// the maps come through the read-only cache (__ldg). Each chunk carries
-// its own logRange (8..16), so streams with a non-default one decode here
-// too. A read at or past the chunk's byte count returns 0 and makes the
-// chunk's nread -1, the error flag the host reads back with the symbols.
+// Bound: bytes on the roofline (microseconds). On the card, the latency of
+// one chain per chunk: each group's four lookups need the states of the
+// group before, and its renorm reads the cursor that those states moved.
+// Design:
+// - one CTA per row; thread 0 walks the chain, the other threads build the
+//   row's table, stage its stream and zero the output past ngroups;
+// - one 8-byte entry per freq slot, (symbol | freq << 8, slot - cumFreq),
+//   the plain version's `comb`: one dependent load per state where there
+//   were two (map, then freq and cumFreq);
+// - an order-0 row whose 2^lr entries fit (lr <= 14) keeps its table and
+//   its byte stream in shared memory; an order-1 row (256 * 2^lr entries)
+//   and a larger order-0 row read a table that a grid-wide pass, launched
+//   first in the same call, builds in a scratch buffer the caller passes;
+// - a group issues its four lookups and the load of the 8 bytes at the
+//   cursor together, since all depend only on the group before; the
+//   renormalisations 3, 2, 1, 0 then take their pairs from that window in
+//   registers, so the cursor chain costs a few ALU operations a group.
+// Each chunk carries its own logRange (8..16). A read at or past the row's
+// byte count returns 0 and makes the row's nread -1, the error flag the
+// host reads back with the symbols.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,63 +103,191 @@ __global__ void ans_encode_kernel(const Sym* __restrict__ syms,
     for (int j = 0; j < 4; ++j) states[row * 4 + j] = st[j];
 }
 
-__global__ void ans_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
-                                  const int* __restrict__ nbytes,
-                                  const unsigned* __restrict__ states0,
-                                  const uint8_t* __restrict__ f2s, int64_t F,
-                                  const int* __restrict__ dtabs, int64_t T,
-                                  const int* __restrict__ ngroups,
-                                  const int* __restrict__ lrs, int order,
-                                  int64_t B, int64_t G,
-                                  uint8_t* __restrict__ out,
-                                  int* __restrict__ nread) {
-    const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= B) return;
-    const uint8_t* buf = bufs + row * S;
-    int64_t nb = nbytes[row];
-    nb = nb < 0 ? 0 : (nb > S ? S : nb);
-    const uint8_t* map = f2s + row * F;
-    const unsigned* freq = (const unsigned*)dtabs + row * 2 * T;
-    const unsigned* cum = freq + T;
-    uint8_t* o = out + row * G * 4;
-    int64_t ng = ngroups[row];
-    ng = ng < 0 ? 0 : (ng > G ? G : ng);
-    const int lr = lrs[row];
-    // a logRange the format cannot carry, or a map row too short for it
-    if (lr < 8 || lr > 16 || ((int64_t)(order ? 256 : 1) << lr) > F) ng = -1;
+// order-0 rows in shared memory: 2^14 entries of 8 bytes (lr <= 14) and a
+// byte stream of up to 40 KiB (a chunk's is at most 2 * 16384 + 256)
+constexpr int64_t kSmemEntries = 1 << 14;
+constexpr int64_t kStreamCap = 40960;
+constexpr int kDecThreads = 256;
 
-    unsigned st[4];
-    unsigned prv[4] = {0u, 0u, 0u, 0u};
+__device__ __forceinline__ bool bad_lr(int lr, int order, int64_t F) {
+    return lr < 8 || lr > 16 || ((int64_t)(order ? 256 : 1) << lr) > F;
+}
+
+// One slot's entry: x = symbol | (freq & 0x1FFFF) << 8, y = slot - (cumFreq
+// | freq >> 17), the bits the plain version's comb gives (exact for any
+// table, not only the host's, whose freq and cumFreq are below 2^17)
+__device__ __forceinline__ uint2 dec_entry(unsigned sym, unsigned slot,
+                                           unsigned freq, unsigned cum) {
+    return make_uint2(sym | ((freq & 0x1FFFFu) << 8), slot - (cum | (freq >> 17)));
+}
+
+// The 8 stream bytes at cursor n, big-endian (byte n on top), 0 past nb.
+// Three aligned words: a word holding a byte below nb lies in the row's
+// data, so no load leaves the buffer's pages. A shared buffer is aligned.
+template <bool kShared>
+__device__ __forceinline__ uint64_t window8(const uint8_t* buf, int64_t n,
+                                            int64_t nb) {
+    if (n >= nb) return 0ull;
+    const int64_t mis = kShared ? 0 : (int64_t)((uintptr_t)buf & 3);
+    const unsigned* w = (const unsigned*)(buf - mis);
+    const int64_t pos = n + mis;
+    const int64_t wi = pos >> 2;
+    unsigned v[3];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) st[j] = states0[row * 4 + j];
-    const unsigned mask = (1u << (lr & 31)) - 1u;
+    for (int i = 0; i < 3; ++i) {
+        const bool in = 4 * (wi + i) < nb + mis;
+        v[i] = in ? (kShared ? w[wi + i] : __ldg(w + wi + i)) : 0u;
+    }
+    const unsigned sh = (unsigned)(pos & 3) * 8;
+    const unsigned lo = __byte_perm(__funnelshift_r(v[0], v[1], sh), 0, 0x0123);
+    const unsigned hi = __byte_perm(__funnelshift_r(v[1], v[2], sh), 0, 0x0123);
+    uint64_t win = ((uint64_t)lo << 32) | hi;
+    const int64_t left = nb - n;
+    if (left < 8) win &= ~0ull << (8 * (8 - left));
+    return win;
+}
+
+// The chain of one row: ng groups, states 3, 2, 1, 0 sharing the cursor.
+// Returns the bytes consumed (> nb where a read passed the stream's end).
+template <int kOrder, bool kShared>
+__device__ __forceinline__ int64_t walk(const uint2* tab, const uint8_t* buf,
+                                        int64_t nb, const unsigned* st0,
+                                        int lr, int64_t ng, unsigned* o) {
+    unsigned st[4], prv[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) st[j] = st0[j];
+    const unsigned mask = (1u << lr) - 1u;
     int64_t n = 0;
-    bool err = ng < 0;
     for (int64_t g = 0; g < ng; ++g) {
+        uint2 e[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const unsigned slot = st[j] & mask;
+            const uint2* p = tab + (kOrder ? (prv[j] << lr) + slot : slot);
+            e[j] = kShared ? *p : __ldg(p);
+        }
+        uint64_t win = window8<kShared>(buf, n, nb);
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
             const int j = 3 - jj;
-            // the cursor's next two bytes, loaded before the state is known
-            const unsigned b0 = n < nb ? (unsigned)__ldg(buf + n) : 0u;
-            const unsigned b1 = n + 1 < nb ? (unsigned)__ldg(buf + n + 1) : 0u;
-            const unsigned x = st[j];
-            const unsigned ctx = order ? prv[j] : 0u;
-            const unsigned slot = x & mask;
-            const unsigned sym = __ldg(map + ((ctx << lr) + slot));
-            const unsigned ti = (ctx << 8) + sym;
-            unsigned y = __ldg(freq + ti) * (x >> lr) + slot - __ldg(cum + ti);
+            unsigned y = (e[j].x >> 8) * (st[j] >> lr) + e[j].y;
             if (y < kAnsTop) {
-                if (n + 1 >= nb) err = true;
-                y = (y << 16) | (b0 << 8) | b1;
+                y = (y << 16) | (unsigned)(win >> 48);
+                win <<= 16;
                 n += 2;
             }
             st[j] = y;
-            prv[j] = sym;
-            o[g * 4 + j] = (uint8_t)sym;
+            prv[j] = e[j].x & 0xFFu;
         }
+        o[g] = prv[0] | (prv[1] << 8) | (prv[2] << 16) | (prv[3] << 24);
     }
-    for (int64_t i = (ng < 0 ? 0 : ng) * 4; i < G * 4; ++i) o[i] = 0;
-    nread[row] = err ? -1 : (int)n;
+    return n;
+}
+
+__device__ __forceinline__ bool in_smem(int order, int lr, int64_t stream_smem) {
+    return order == 0 && stream_smem > 0 && ((int64_t)1 << lr) <= kSmemEntries;
+}
+
+// The grid-wide pass: the tables of the rows that do not decode from
+// shared memory, into scratch (B, F) entries. Grid (x: rows, y: slots).
+__global__ void ans_table_kernel(const uint8_t* __restrict__ f2s, int64_t F,
+                                 const unsigned* __restrict__ dtabs, int64_t T,
+                                 const int* __restrict__ lrs, int order,
+                                 int64_t stream_smem, uint2* __restrict__ scratch) {
+    const int64_t row = blockIdx.x;
+    const int lr = lrs[row];
+    if (bad_lr(lr, order, F) || in_smem(order, lr, stream_smem)) return;
+    const int64_t n = (int64_t)(order ? 256 : 1) << lr;
+    const uint8_t* map = f2s + row * F;
+    const unsigned* freq = dtabs + row * 2 * T;
+    const unsigned* cum = freq + T;
+    uint2* t = scratch + row * F;
+    const unsigned mask = (1u << lr) - 1u;
+    for (int64_t i = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; i < n;
+         i += (int64_t)gridDim.y * blockDim.x) {
+        const unsigned sym = map[i];
+        const unsigned ti = order ? (((unsigned)(i >> lr)) << 8) + sym : sym;
+        t[i] = dec_entry(sym, (unsigned)i & mask, __ldg(freq + ti), __ldg(cum + ti));
+    }
+}
+
+__global__ void __launch_bounds__(kDecThreads)
+ans_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
+                  const int* __restrict__ nbytes,
+                  const unsigned* __restrict__ states0,
+                  const uint8_t* __restrict__ f2s, int64_t F,
+                  const unsigned* __restrict__ dtabs, int64_t T,
+                  const int* __restrict__ ngroups,
+                  const int* __restrict__ lrs, int order, int64_t G,
+                  int64_t stream_smem, const uint2* __restrict__ scratch,
+                  unsigned* __restrict__ out, int* __restrict__ nread) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int64_t row = blockIdx.x;
+    const int tid = threadIdx.x;
+    const uint8_t* buf = bufs + row * S;
+    int64_t nb = nbytes[row];
+    nb = nb < 0 ? 0 : (nb > S ? S : nb);
+    int64_t ng = ngroups[row];
+    ng = ng < 0 ? 0 : (ng > G ? G : ng);
+    const int lr = lrs[row];
+    const bool bad = bad_lr(lr, order, F);
+    if (bad) ng = 0;
+    unsigned* o = out + row * G;
+    const unsigned* st0 = states0 + row * 4;
+
+    if (!bad && in_smem(order, lr, stream_smem)) {
+        uint2* tab = (uint2*)smem;
+        unsigned* sfreq = (unsigned*)(tab + (F < kSmemEntries ? F : kSmemEntries));
+        unsigned* scum = sfreq + 256;
+        uint8_t* sbuf = (uint8_t*)(scum + 256);
+        const unsigned* freq = dtabs + row * 2 * T;
+        for (int i = tid; i < 256; i += kDecThreads) {
+            sfreq[i] = __ldg(freq + i);
+            scum[i] = __ldg(freq + T + i);
+        }
+        // the stream, zero past nb (window8 reads up to 12 bytes past n)
+#pragma unroll 8
+        for (int64_t i = tid; i < stream_smem; i += kDecThreads)
+            sbuf[i] = i < nb ? __ldg(buf + i) : 0;
+        __syncthreads();
+        const uint8_t* map = f2s + row * F;
+        for (int i = tid; i < (1 << lr); i += kDecThreads) {
+            const unsigned sym = __ldg(map + i);
+            tab[i] = dec_entry(sym, (unsigned)i, sfreq[sym], scum[sym]);
+        }
+        __syncthreads();
+        if (tid == 0) {
+            const int64_t n = walk<0, true>(tab, sbuf, nb, st0, lr, ng, o);
+            nread[row] = n > nb ? -1 : (int)n;
+        }
+    } else if (tid == 0) {
+        int64_t n = 0;
+        if (!bad) {
+            const uint2* tab = scratch + row * F;
+            n = order ? walk<1, false>(tab, buf, nb, st0, lr, ng, o)
+                      : walk<0, false>(tab, buf, nb, st0, lr, ng, o);
+        }
+        nread[row] = (bad || n > nb) ? -1 : (int)n;
+    }
+    // the groups past ngroups are zero; warp 0 holds the walker
+    for (int64_t i = ng + tid - 32; tid >= 32 && i < G; i += kDecThreads - 32)
+        o[i] = 0u;
+}
+
+// Shared memory of a decode CTA, and whether scratch tables are needed
+struct DecLayout {
+    int64_t stream_smem;   // bytes of the staged stream, 0: no row in smem
+    int64_t smem;          // dynamic shared memory of the launch
+    int64_t scratch;       // bytes of scratch tables (B, F) the call needs
+};
+
+DecLayout dec_layout(int64_t S, int64_t F, int64_t order, int64_t B) {
+    DecLayout l;
+    l.stream_smem = (order == 0 && S <= kStreamCap) ? ((S + 3) & ~(int64_t)3) + 16 : 0;
+    const int64_t entries = F < kSmemEntries ? F : kSmemEntries;
+    l.smem = l.stream_smem ? entries * 8 + 2 * 256 * 4 + l.stream_smem : 0;
+    l.scratch = (order == 1 || F > kSmemEntries || !l.stream_smem) ? B * F * 8 : 0;
+    return l;
 }
 
 }  // namespace
@@ -186,23 +327,44 @@ int kz_ans_encode_u16(const void* syms, const void* ngroups, const void* tables,
 
 // bufs (B, S) uint8, nbytes (B,) int32, states0 (B, 4) u32, f2s (B, F)
 // uint8, dtabs (B, 2, T) int32 planes freq, cumFreq (T = 256 or 65536),
-// ngroups (B,) int32, lrs (B,) int32 -> out (B, G, 4) uint8, nread (B,)
-// int32 (-1: a read past nbytes, or a logRange the map cannot hold).
+// ngroups (B,) int32, lrs (B,) int32, scratch of scratch_bytes (at least
+// kz_ans_decode_scratch's) -> out (B, G, 4) uint8, nread (B,) int32 (-1: a
+// read past nbytes, or a logRange the map cannot hold). Two launches: the
+// scratch tables, then one CTA per row.
 int kz_ans_decode(const void* bufs, int64_t S, const void* nbytes,
                   const void* states0, const void* f2s, int64_t F,
                   const void* dtabs, int64_t T, const void* ngroups,
                   const void* lrs, int64_t order, int64_t B, int64_t G,
-                  void* out, void* nread, void* stream) {
-    if (B > 0) {
-        const int threads = threads_for(B);
-        ans_decode_kernel<<<(unsigned)((B + threads - 1) / threads), threads, 0,
-                            (cudaStream_t)stream>>>(
-            (const uint8_t*)bufs, S, (const int*)nbytes,
-            (const unsigned*)states0, (const uint8_t*)f2s, F,
-            (const int*)dtabs, T, (const int*)ngroups, (const int*)lrs,
-            (int)order, B, G, (uint8_t*)out, (int*)nread);
+                  void* out, void* nread, void* scratch, int64_t scratch_bytes,
+                  void* stream) {
+    if (B <= 0) return (int)cudaGetLastError();
+    const DecLayout l = dec_layout(S, F, order, B);
+    if (scratch_bytes < l.scratch) return (int)cudaErrorInvalidValue;
+    cudaError_t rc = cudaFuncSetAttribute(
+        ans_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+    if (rc != cudaSuccess) return (int)rc;
+    if (l.scratch) {
+        const int64_t per_row = (int64_t)(order ? 256 : 1) << 16;
+        const int64_t need = F < per_row ? F : per_row;
+        const unsigned gy = (unsigned)((need + 255) / 256 < 1024 ? (need + 255) / 256 : 1024);
+        ans_table_kernel<<<dim3((unsigned)B, gy), 256, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)f2s, F, (const unsigned*)dtabs, T, (const int*)lrs,
+            (int)order, l.stream_smem, (uint2*)scratch);
+        rc = cudaGetLastError();
+        if (rc != cudaSuccess) return (int)rc;
     }
+    ans_decode_kernel<<<(unsigned)B, kDecThreads, (size_t)l.smem,
+                        (cudaStream_t)stream>>>(
+        (const uint8_t*)bufs, S, (const int*)nbytes, (const unsigned*)states0,
+        (const uint8_t*)f2s, F, (const unsigned*)dtabs, T, (const int*)ngroups,
+        (const int*)lrs, (int)order, G, l.stream_smem, (const uint2*)scratch,
+        (unsigned*)out, (int*)nread);
     return (int)cudaGetLastError();
+}
+
+// bytes of scratch that kz_ans_decode needs for these shapes (0: none)
+int64_t kz_ans_decode_scratch(int64_t S, int64_t F, int64_t order, int64_t B) {
+    return dec_layout(S, F, order, B).scratch;
 }
 
 }  // extern "C"

@@ -19,12 +19,27 @@
 // Design: one thread per chunk writes its words in order, with no
 // compaction, then zeroes the rest of its row.
 //
-// K8 kz_range_decode replaces kanzi_tpu/ops/range.py: decode_chunks. The
-// quotient that the JAX version finds by a 12-step binary search is
-// rng2 == 0 ? 4095 : min((code - low) / rng2, 4095), one 64-bit division.
-// The k-th 28-bit read sits at bit 60 + 28k of the row. Design: one thread
-// per chunk. A read whose bits reach past the row's byte count returns 0
-// there and makes the row's nreads -1, the error flag the host reads back.
+// K8 kz_range_decode replaces kanzi_tpu/ops/range.py: decode_chunks. Bound:
+// bytes on the roofline (microseconds). On the card, the latency of one
+// chain per chunk: each byte's quotient needs the state the byte before
+// left. Design, to shorten the step:
+// - one CTA per row; thread 0 walks the chain, all threads build its
+//   tables and write its symbols out;
+// - the quotient that the JAX version finds by a 12-step binary search,
+//   rng2 == 0 ? 4095 : min((code - low) / rng2, 4095), comes from a float
+//   estimate (d * rcp(rng2), within 1 of the exact quotient) and one
+//   64-bit multiply-compare that corrects it by 1, not a 64-bit division;
+//   the slot entry at the estimate loads while the check runs, and the
+//   walker keeps code - low, the dividend, in place of code;
+// - a 4096-entry slot table (symbol | cumFreq << 8, freq) in shared
+//   memory, the plain version's `comb`: one load a byte where there were
+//   three dependent ones (map, then cumFreq and freq);
+// - the k-th 28-bit read (bit 60 + 28k of the row) computed by the CTA
+//   into shared memory up front, as the plain version's `reads`, indexed
+//   by the read count; the walker holds the next two in registers;
+// - the symbols staged in shared memory and written out by all threads.
+// A read whose bits reach past the row's byte count returns 0 there and
+// makes the row's nreads -1, the error flag the host reads back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,71 +111,167 @@ __global__ void range_encode_kernel(const uint8_t* __restrict__ syms,
     lows[2 * row + 1] = (unsigned)(low >> 32);
 }
 
-__global__ void range_decode_kernel(const uint8_t* __restrict__ bufs,
-                                    int64_t S,
-                                    const int* __restrict__ nbytes,
-                                    const int* __restrict__ tables,
-                                    const uint8_t* __restrict__ f2s,
-                                    const int* __restrict__ shifts,
-                                    const int* __restrict__ nvalid,
-                                    int64_t B, int64_t glen,
-                                    uint8_t* __restrict__ out,
-                                    int* __restrict__ nreads) {
-    const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= B) return;
+constexpr int kDecThreads = 256;
+constexpr int64_t kSlots = 4096;
+constexpr int64_t kStage = 32768;       // symbols staged per segment
+constexpr int64_t kSmemMax = 232448;    // dynamic shared memory of a CTA
+constexpr int64_t kReadsCap = (kSmemMax - kSlots * 8 - 2048 - kStage) / 4;
+
+// The k-th 28-bit read: bits 60 + 28k .. of the row, zero past nb
+__device__ __forceinline__ unsigned read28(const uint8_t* buf, int64_t nb,
+                                           int64_t k) {
+    const int64_t off = 60 + 28 * k;
+    const int64_t byte = off >> 3;
+    uint64_t win = 0;
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+        win = (win << 8) | (byte + j < nb ? (uint64_t)__ldg(buf + byte + j) : 0ull);
+    return (unsigned)((win >> (12 - (int)(off & 7))) & 0xFFFFFFFull);
+}
+
+// The quotient min(d / r2, 4095) (d, r2 < 2^60; 4095 where r2 == 0) in
+// two halves. estimate(): float32 d * rcp(r2), capped at 4096 and
+// truncated. rcp.approx is within 1 ulp, so the estimate's relative error
+// is below 2^-21 and it lies within 1 of the exact quotient capped at 4096
+// (r2 == 0 gives rcp +inf and 4096). correct(): one 64-bit multiply-compare
+// moves it by 1; q * r2 <= d + r2 < 2^61 does not overflow.
+__device__ __forceinline__ unsigned estimate(uint64_t d, uint64_t r2) {
+    float rcp;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rcp) : "f"(__ull2float_rn(r2)));
+    return __float2uint_rz(fminf(__fmul_rn(__ull2float_rn(d), rcp), 4096.0f));
+}
+
+__device__ __forceinline__ unsigned correct(unsigned q, uint64_t d, uint64_t r2) {
+    const uint64_t p = (uint64_t)q * r2;
+    if (p > d) --q;
+    else if (d - p >= r2) ++q;
+    return q < 4095u ? q : 4095u;
+}
+
+struct DecLayout {
+    int64_t kmax;     // the last read index the plain version computes
+    int64_t kcap;     // reads held in shared memory
+    int64_t stage;    // bytes of the symbol stage
+    int64_t smem;     // dynamic shared memory of the launch
+};
+
+__host__ __device__ DecLayout dec_layout(int64_t S, int64_t glen) {
+    DecLayout l;
+    l.kmax = 8 * S < 60 ? 0 : (8 * S - 60) / 28 + 1;
+    l.kcap = l.kmax + 1 < kReadsCap ? l.kmax + 1 : kReadsCap;
+    const int64_t g = (glen + 15) & ~(int64_t)15;
+    l.stage = g < 16 ? 16 : (g < kStage ? g : kStage);
+    l.smem = kSlots * 8 + 2048 + 4 * l.kcap + l.stage;
+    return l;
+}
+
+__global__ void __launch_bounds__(kDecThreads)
+range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
+                    const int* __restrict__ nbytes,
+                    const int* __restrict__ tables,
+                    const uint8_t* __restrict__ f2s,
+                    const int* __restrict__ shifts,
+                    const int* __restrict__ nvalid, int64_t glen,
+                    uint8_t* __restrict__ out, int* __restrict__ nreads) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const DecLayout l = dec_layout(S, glen);
+    uint2* comb = (uint2*)smem;
+    int* tab = (int*)(comb + kSlots);
+    unsigned* reads = (unsigned*)(tab + 512);
+    uint8_t* stage = (uint8_t*)(reads + l.kcap);
+
+    const int64_t row = blockIdx.x;
+    const int tid = threadIdx.x;
     const uint8_t* buf = bufs + row * S;
     int64_t nb = nbytes[row];
     nb = nb < 0 ? 0 : (nb > S ? S : nb);
-    const unsigned* cum_t = (const unsigned*)tables + row * 512;
-    const unsigned* freq_t = cum_t + 256;
-    const uint8_t* map = f2s + row * 4096;
     const int sh = clamp_shift(shifts[row]);
     int64_t nv = nvalid[row];
     nv = nv < 0 ? 0 : (nv > glen ? glen : nv);
     uint8_t* o = out + row * glen;
 
-    // the first 60 bits: bytes 0..7 read big-endian, shifted down by 4
-    uint64_t head = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-        head = (head << 8) | (j < nb ? (uint64_t)__ldg(buf + j) : 0ull);
-    uint64_t code = head >> 4;
-    bool err = nv > 0 && nb < 8;
-    uint64_t low = 0, rng = kTop;
-    int64_t nr = 0;
-    for (int64_t i = 0; i < nv; ++i) {
-        const uint64_t r2 = rng >> sh;
-        const uint64_t d = (code - low) & kM60;
-        uint64_t q = 4095;
-        if (r2 != 0) {
-            q = d / r2;
-            if (q > 4095) q = 4095;
-        }
-        const unsigned sym = __ldg(map + q);
-        low = (low + (uint64_t)__ldg(cum_t + sym) * r2) & kM60;
-        rng = ((uint64_t)__ldg(freq_t + sym) * r2) & kM60;
-#pragma unroll
-        for (int it = 0; it < 2; ++it) {
-            if (renorm_done(low, rng)) break;
-            // 28 bits at bit 60 + 28 nr: a 40-bit window of 5 bytes
-            const int64_t off = 60 + 28 * nr;
-            const int64_t byte = off >> 3;
-            if (((off + 27) >> 3) >= nb) err = true;
-            uint64_t win = 0;
-#pragma unroll
-            for (int j = 0; j < 5; ++j)
-                win = (win << 8) |
-                      (byte + j < nb ? (uint64_t)__ldg(buf + byte + j) : 0ull);
-            const uint64_t v = (win >> (12 - (int)(off & 7))) & 0xFFFFFFFull;
-            code = ((code << 28) & kM60) | v;
-            low = (low << 28) & kM60;
-            rng = (rng << 28) & kM60;
-            ++nr;
-        }
-        o[i] = (uint8_t)sym;
+    for (int i = tid; i < 512; i += kDecThreads) tab[i] = tables[row * 512 + i];
+#pragma unroll 4
+    for (int64_t k = tid; k < l.kcap; k += kDecThreads) reads[k] = read28(buf, nb, k);
+    __syncthreads();
+    // slot -> (symbol | (cumFreq & 0xFFFFFF) << 8, (cumFreq >> 24) | freq):
+    // the bits of the plain version's int64 comb, for any int32 table
+    const uint8_t* map = f2s + row * kSlots;
+    for (int i = tid; i < kSlots; i += kDecThreads) {
+        const int sym = map[i];
+        const int cum = tab[sym], freq = tab[256 + sym];
+        comb[i] = make_uint2((unsigned)sym | (((unsigned)cum & 0xFFFFFFu) << 8),
+                             (unsigned)((cum >> 24) | freq));
     }
-    for (int64_t i = nv; i < glen; ++i) o[i] = 0;
-    nreads[row] = err ? -1 : (int)nr;
+    __syncthreads();
+
+    // the walker's state lives in thread 0's registers across segments;
+    // `code` holds code - low (mod 2^60), the quotient's dividend
+    uint64_t code = 0, low = 0, rng = kTop;
+    int64_t nr = 0;
+    unsigned nx0 = 0, nx1 = 0;
+    auto read_at = [&](int64_t k) -> unsigned {
+        k = k < l.kmax ? k : l.kmax;
+        return k < l.kcap ? reads[k] : read28(buf, nb, k);
+    };
+    if (tid == 0) {
+        // the first 60 bits: bytes 0..7 read big-endian, shifted down by 4
+        uint64_t head = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            head = (head << 8) | (j < nb ? (uint64_t)__ldg(buf + j) : 0ull);
+        code = head >> 4;
+        nx0 = read_at(0);
+        nx1 = read_at(1);
+    }
+    for (int64_t base = 0; base < glen; base += l.stage) {
+        const int64_t len = glen - base < l.stage ? glen - base : l.stage;
+        const int64_t end = nv - base < len ? nv - base : len;
+        if (tid == 0) {
+            for (int64_t i = 0; i < end; ++i) {
+                const uint64_t r2 = rng >> sh;
+                // the entry at the estimate loads while the estimate is
+                // checked; a corrected quotient loads again (rarely)
+                const unsigned qe = estimate(code, r2);
+                const unsigned qs = qe < 4095u ? qe : 4095u;
+                uint2 e = comb[qs];
+                const unsigned q = correct(qe, code, r2);
+                if (q != qs) e = comb[q];
+                const uint64_t step = (uint64_t)(e.x >> 8) * r2;
+                low = (low + step) & kM60;
+                code = (code - step) & kM60;
+                rng = ((uint64_t)(int64_t)(int)e.y * r2) & kM60;
+                stage[i] = (uint8_t)e.x;
+                if (renorm_done(low, rng)) continue;
+                code = ((code << 28) & kM60) | nx0;
+                low = (low << 28) & kM60;
+                rng = (rng << 28) & kM60;
+                if (renorm_done(low, rng)) {
+                    ++nr;
+                    nx0 = nx1;
+                    nx1 = read_at(nr + 1);
+                    continue;
+                }
+                code = ((code << 28) & kM60) | nx1;
+                low = (low << 28) & kM60;
+                rng = (rng << 28) & kM60;
+                nr += 2;
+                nx0 = read_at(nr);
+                nx1 = read_at(nr + 1);
+            }
+        }
+        __syncthreads();
+        for (int64_t i = tid; i < len; i += kDecThreads) o[base + i] = i < end ? stage[i] : 0;
+        __syncthreads();
+    }
+    if (tid == 0) {
+        // reads 0 .. kbad-1 lie inside the row's bytes (the plain version
+        // counts them among its kmax + 1)
+        int64_t kbad = 8 * nb < 88 ? 0 : (8 * nb - 88) / 28 + 1;
+        kbad = kbad < l.kmax + 1 ? kbad : l.kmax + 1;
+        const bool err = nr > kbad || (nv > 0 && nb < 8);
+        nreads[row] = err ? -1 : (int)nr;
+    }
 }
 
 }  // namespace
@@ -186,19 +297,21 @@ int kz_range_encode(const void* syms, int64_t N, const void* nvalid,
 
 // bufs (B, S) uint8, nbytes (B,) int32, tables (B, 2, 256) int32, f2s
 // (B, 4096) uint8, shifts (B,) int32, nvalid (B,) int32 -> out (B, glen)
-// uint8, nreads (B,) int32 (-1: a read past nbytes).
+// uint8, nreads (B,) int32 (-1: a read past nbytes). One CTA per row.
 int kz_range_decode(const void* bufs, int64_t S, const void* nbytes,
                     const void* tables, const void* f2s, const void* shifts,
                     const void* nvalid, int64_t B, int64_t glen, void* out,
                     void* nreads, void* stream) {
-    if (B > 0) {
-        const int threads = threads_for(B);
-        range_decode_kernel<<<(unsigned)((B + threads - 1) / threads), threads,
-                              0, (cudaStream_t)stream>>>(
-            (const uint8_t*)bufs, S, (const int*)nbytes, (const int*)tables,
-            (const uint8_t*)f2s, (const int*)shifts, (const int*)nvalid, B,
-            glen, (uint8_t*)out, (int*)nreads);
-    }
+    if (B <= 0) return (int)cudaGetLastError();
+    const DecLayout l = dec_layout(S, glen);
+    const cudaError_t rc = cudaFuncSetAttribute(
+        range_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+    if (rc != cudaSuccess) return (int)rc;
+    range_decode_kernel<<<(unsigned)B, kDecThreads, (size_t)l.smem,
+                          (cudaStream_t)stream>>>(
+        (const uint8_t*)bufs, S, (const int*)nbytes, (const int*)tables,
+        (const uint8_t*)f2s, (const int*)shifts, (const int*)nvalid, glen,
+        (uint8_t*)out, (int*)nreads);
     return (int)cudaGetLastError();
 }
 

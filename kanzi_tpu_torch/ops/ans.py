@@ -221,10 +221,16 @@ def decode_chunks(bufs: torch.Tensor, nbytes: torch.Tensor,
                                     lr, order, glen)
     out = torch.empty(B, glen, 4, dtype=torch.uint8, device=dev)
     nread = torch.empty(B, dtype=torch.int32, device=dev)
+    # rows whose table does not fit shared memory read one that the call
+    # builds in scratch; the kernel library says how much
+    F = f2s.shape[1]
+    scratch = torch.empty(max(K.query("kz_ans_decode_scratch", S, F, order, B), 8),
+                          dtype=torch.uint8, device=dev)
     K.launch("ans_decode", "kz_ans_decode", dev, bufs.data_ptr(), S,
-             nbytes.data_ptr(), states0.data_ptr(), f2s.data_ptr(),
-             f2s.shape[1], dtabs.data_ptr(), T, ngroups.data_ptr(),
-             lr.data_ptr(), order, B, glen, out.data_ptr(), nread.data_ptr())
+             nbytes.data_ptr(), states0.data_ptr(), f2s.data_ptr(), F,
+             dtabs.data_ptr(), T, ngroups.data_ptr(), lr.data_ptr(), order, B,
+             glen, out.data_ptr(), nread.data_ptr(), scratch.data_ptr(),
+             scratch.numel())
     return out, nread
 
 

@@ -19,6 +19,7 @@ from kanzi_tpu_torch.entropy.huffman_device import huffman_decode_device
 from kanzi_tpu_torch.ops import ans as ops_ans, block_stats, huffman as ops_huffman
 from kanzi_tpu_torch.ops import range as ops_range
 from kanzi_tpu_torch.ops.state import to_port_state
+from specmodel import ans as spec_ans
 
 pytestmark = pytest.mark.gpu
 
@@ -165,3 +166,129 @@ def test_ans_range_slice_on_card(card, kw):
     assert _kernels.launches[f"{name}_encode"] > 0
     assert _kernels.launches[f"{name}_decode"] > 0
     assert sum(_kernels.plain_calls.values()) == 0
+
+
+_ANS_KEYS = ("bufs", "nbytes", "states0", "f2s", "dtabs", "ngroups", "lr")
+_RANGE_KEYS = ("bufs", "nbytes", "rng_tables", "f2s", "shifts", "nvalid")
+
+
+def _spec_ans_rows(order, log_range, n):
+    """The device rows of a spec-model stream with a chosen logRange."""
+    enc = spec_ans.SpecANSEncoder(order=order, log_range=log_range)
+    enc.write(_text(n))
+    batch, _ = ans_device.decode_batch(np.frombuffer(enc.finish()[0], np.uint8),
+                                       n, order)
+    return {k: np.array(v) for k, v in batch.items()}
+
+
+def _stack_rows(parts):
+    """Rows of several batches as one: bufs and f2s zero-padded to the
+    widest."""
+    for k in ("f2s", "bufs"):
+        width = max(p[k].shape[1] for p in parts)
+        for p in parts:
+            p[k] = np.pad(p[k], ((0, 0), (0, width - p[k].shape[1])))
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _hold_ans_decode(arrays, order, card):
+    """K6 against its plain version on the same rows; returns (syms, nread)."""
+    glen = int(arrays["ngroups"].max())
+    got, want = _both(ops_ans.decode_chunks, arrays, _ANS_KEYS, card, order, glen)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    return got
+
+
+def test_ans_decode_kernel_mixed_log_ranges(card):
+    # order 0, one call: rows at logRange 10 and 14 decode from shared
+    # memory, rows at 15 and a synthetic row at 16 from the scratch tables
+    parts = [_spec_ans_rows(0, lr, n)
+             for lr, n in ((10, 6000), (14, 7000), (15, 20000))]
+    rng = np.random.default_rng(16)
+    parts.append({   # 256 symbols of frequency 256, random states and bytes
+        "bufs": rng.integers(0, 256, (1, 30000), dtype=np.uint8),
+        "nbytes": np.array([30000], np.int32),
+        "states0": rng.integers(1 << 15, 1 << 32, (1, 4)).astype(np.uint32),
+        "f2s": np.repeat(np.arange(256, dtype=np.uint8), 256)[None],
+        "dtabs": np.stack([np.full(256, 256), 256 * np.arange(256)])[None].astype(np.int32),
+        "ngroups": np.array([4096], np.int32), "lr": np.array([16], np.int32)})
+    arrays = _stack_rows(parts)
+    assert sorted(set(arrays["lr"].tolist())) == [10, 14, 15, 16]
+    _kernels.reset_counts()
+    syms, nread = _hold_ans_decode(arrays, 0, card)
+    assert _kernels.launches["ans_decode"] == 1
+    real = len(arrays["lr"]) - 1
+    assert (nread[:real].numpy() == arrays["nbytes"][:real]).all()
+
+
+def test_ans_decode_kernel_order1_log_ranges(card):
+    # order 1 at logRange 10 and 14 (the spec encoder takes log_range - 1)
+    arrays = _stack_rows([_spec_ans_rows(1, 11, 5000), _spec_ans_rows(1, 15, 6000)])
+    assert arrays["lr"].tolist() == [10, 14]
+    syms, nread = _hold_ans_decode(arrays, 1, card)
+    assert (nread.numpy() == arrays["nbytes"]).all()
+    for r, n in enumerate((5000, 6000)):
+        g = int(arrays["ngroups"][r])
+        want = np.frombuffer(_text(n), np.uint8)[:4 * g].reshape(4, g).T
+        assert np.array_equal(syms[r, :g].numpy(), want)
+
+
+def test_ans_decode_kernel_error_flag(card):
+    # a row cut short and a row whose logRange its f2s row cannot hold
+    data = np.frombuffer(_text(40000), np.uint8)
+    payload, _ = native.entropy_encode(5, data, {"bsVersion": 6})
+    batch, _ = ans_device.decode_batch(np.frombuffer(payload, np.uint8), len(data), 0)
+    arrays = {k: np.array(v) for k, v in batch.items()}
+    arrays["nbytes"][0] -= 2
+    arrays["lr"][1] = 13
+    _syms, nread = _hold_ans_decode(arrays, 0, card)
+    assert nread[0] == -1 and nread[1] == -1
+    assert (nread[2:].numpy() == arrays["nbytes"][2:]).all()
+
+
+def _range_cases():
+    """The cases of tests/test_torch_range.py that launch K8, drawn in the
+    same order from the same seed."""
+    rng = np.random.default_rng(4)
+    draws = {}
+    for name, hi, n in (("random", 256, 20000), ("narrow", 8, 40000),
+                        ("small", 256, 100), ("chunk_edge", 256, 16384 + 33),
+                        ("n31", 256, 31), ("chunk32k_edge", 256, range_device._CHUNK + 97),
+                        ("degenerate", 200, 500)):
+        draws[name] = rng.integers(0, hi, n, dtype=np.uint8).tobytes()
+    return {k: draws[k] for k in ("degenerate", "n31", "narrow", "chunk32k_edge")}
+
+
+def test_range_decode_kernel_matches_plain(card):
+    # every chunk of the four cases as one batch, plus a copy of one row
+    # whose byte count ends inside its last read
+    rows, sizes = [], []
+    for name, data in _range_cases().items():
+        payload, _ = native.entropy_encode(4, np.frombuffer(data, np.uint8),
+                                           {"bsVersion": 6})
+        src = np.frombuffer(payload, np.uint8)
+        bit_pos = 0
+        for start in range(0, len(data), range_device._CHUNK):
+            size = min(range_device._CHUNK, len(data) - start)
+            hdr_end, single, batch = range_device.chunk_batch(src, bit_pos, size)
+            assert batch is not None, name
+            st = to_port_state(batch, card)
+            _s, nr = ops_range.decode_chunks(*(st[k] for k in _RANGE_KEYS), size)
+            nr = int(nr.cpu()[0])
+            assert nr >= 0, name
+            rows.append({k: np.array(v) for k, v in batch.items()})
+            sizes.append((nr, size))
+            bit_pos = hdr_end + 60 + 28 * nr
+        assert range_device.range_decode_device(payload, len(data), card) == data
+    cut = {k: v.copy() for k, v in rows[-1].items()}
+    cut["nbytes"][0] = (60 + 28 * sizes[-1][0] - 1) >> 3
+    rows.append(cut)
+    width = max(r["bufs"].shape[1] for r in rows)
+    for r in rows:
+        r["bufs"] = np.pad(r["bufs"], ((0, 0), (0, width - r["bufs"].shape[1])))
+    arrays = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+    glen = max(s for _, s in sizes)
+    got, want = _both(ops_range.decode_chunks, arrays, _RANGE_KEYS, card, glen)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[1][:-1].tolist() == [nr for nr, _ in sizes]
+    assert got[1][-1] == -1

@@ -201,3 +201,67 @@ def test_corrupted_range_block_raises_without_host_fallback(monkeypatch):
         with pytest.raises(KanziError, match=msg) as ei:
             kt.decompress(bytes(bad), device="cpu")
         assert ei.value.code == code, (pos, str(ei.value))
+
+
+def _quotient_as_kernel(d, r2, ulp):
+    """csrc/range.cu estimate() and correct() in numpy, with the kernel's
+    arithmetic: float32 d * rcp(r2), capped at 4096 and truncated, then
+    moved by one with a 64-bit multiply-compare. rcp.approx is within 1
+    ulp of the rounded reciprocal: `ulp` (-1, 0, 1) picks which. Returns
+    (the estimate, the result)."""
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        rcp = np.float32(1) / r2.astype(np.float32)
+        if ulp:
+            toward = np.float32(np.inf if ulp > 0 else 0)
+            rcp = np.where(r2 > 0, np.nextafter(rcp, toward), rcp)
+        qf = d.astype(np.float32) * rcp
+    est = np.fmin(qf, np.float32(4096)).astype(np.uint32).astype(np.uint64)
+    p = est * r2                               # <= d + r2 < 2^61 (checked)
+    over = p > d
+    q = np.where(over, est - 1, est)
+    up = ~over & ((d - np.where(over, 0, p)) >= r2)
+    q = np.where(up, q + 1, q)
+    return est.astype(np.int64), np.minimum(q, 4095).astype(np.int64)
+
+
+@pytest.mark.parametrize("ulp", [-1, 0, 1])
+def test_range_quotient_estimate_is_exact(ulp):
+    # K8's float estimate and its correction against exact integer
+    # division, on the state widths the coder has (d, r2 < 2^60)
+    rng = np.random.default_rng(60)
+    n = 10 ** 6
+    bits = rng.integers(0, 61, n)
+    r2 = rng.integers(0, 1 << 60, n, dtype=np.uint64) >> (60 - bits).astype(np.uint64)
+    r2 = np.maximum(r2, 1)
+    # half the pairs near a chosen quotient, half with any d
+    q = rng.integers(0, 5000, n).astype(np.uint64)
+    near = q * r2 + rng.integers(0, 1 << 62, n, dtype=np.uint64) % r2
+    near = np.where(near < (1 << 60), near, (1 << 60) - 1)
+    anyd = rng.integers(0, 1 << 60, n, dtype=np.uint64)
+    d = np.where(np.arange(n) % 2 == 0, near, anyd).astype(np.uint64)
+    # the edges: r2 of 0, 1, 2^48 - 1 and wider; d at and next to the
+    # multiples of r2 around the cap, and past it
+    er, ed = [], []
+    for r in (0, 1, 2, 3, (1 << 48) - 1, 1 << 48, (1 << 52) + 7, (1 << 60) - 1):
+        for k in (0, 1, 2, 4094, 4095, 4096, 4097, 1 << 20):
+            for delta in (-1, 0, 1):
+                v = k * r + delta
+                if 0 <= v < 1 << 60:
+                    er.append(r)
+                    ed.append(v)
+        er.append(r)
+        ed.append((1 << 60) - 1)
+    r2 = np.concatenate([r2, np.array(er, np.uint64)])
+    d = np.concatenate([d, np.array(ed, np.uint64)])
+    est, got = _quotient_as_kernel(d, r2, ulp)
+    safe = np.maximum(r2, 1)
+    exact = np.where(r2 == 0, 4095, np.minimum(d // safe, 4095)).astype(np.int64)
+    assert np.array_equal(got, exact)
+    # the estimate lies within 1 of the capped quotient, which keeps the
+    # product est * r2 below 2^61; r2 == 0 estimates 4096
+    pos = r2 > 0
+    capped = np.minimum(d[pos] // r2[pos], 4096).astype(np.int64)
+    assert np.abs(est[pos] - capped).max() <= 1
+    assert (est[pos].astype(object) * r2[pos].astype(object) < (1 << 61)).all()
+    assert (est[~pos] == 4096).all()
+    assert (d // safe >= 4096).sum() > 1000 and (~pos).sum() >= 1
