@@ -10,9 +10,12 @@ Phases, each failing hard (no exception is caught):
 2. kernels: each of the eight kernels against its plain PyTorch version
    on the card, at the shapes of the main path, with its median time from
    CUDA events, its roofline bound and (where one exists) the time of one
-   PyTorch library call computing the same function; the decode kernels'
-   ns per symbol, and the RANGE chunk walk's host time per chunk beside
-   the range decode kernel's;
+   PyTorch library call computing the same function; the rANS kernels'
+   and the range decode kernel's ns per symbol, K4's ns per lane step at
+   the Reader's one-block launch and its time on four blocks' lanes, K5
+   also held on a row whose
+   every step emits, the SM clock, and the RANGE chunk walk's host time
+   per chunk beside the range decode kernel's;
 3. the slice: a 64 MiB seeded corpus through compress/decompress at levels
    2, 3 and 5 on the card, and its first 16 MiB through the ANS1 and RANGE
    codecs, byte-identical to the host C++ path, each path read by the
@@ -165,7 +168,16 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
                ms=median_ms(torch, lambda: ops_ans.encode_chunks(*a), 10),
                plain_ms=median_ms(torch, lambda: ops_ans._encode_chunks_plain(*a), 1, 0),
                bound_ms=bms, bound_by=bby, library_ms=None)
-    del st, a
+    enc["ns_per_step"] = enc["ms"] * 1e6 / nsym
+    # a row whose every step emits (xMax 0): npairs = 4G, the whole row is
+    # one in-place move at the end of the kernel
+    full = (a[0][:1].contiguous(), torch.full((1,), G, dtype=torch.int32, device=cuda),
+            a[2][:1].clone())
+    full[2][:, 0] = 0
+    enc["max_abs_err"] = max(err, hold(torch, ops_ans.encode_chunks,
+                                       ops_ans._encode_chunks_plain, full))
+    check(int(ops_ans.encode_chunks(*full)[1].item()) == 4 * G, "every-step row")
+    del st, a, full
 
     # K6, order 0: one block's host ANS0 payload, as the Reader decodes it
     payload, _ = native.entropy_encode(5, posts5[0], {"bsVersion": 6})
@@ -201,6 +213,8 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
                      40 * int(batch["ngroups"].sum()))
     enc["order1"] = dict(shape=[B, G, 4], bound_ms=bms, bound_by=bby,
                          ms=median_ms(torch, lambda: ops_ans.encode_chunks(*a), 3))
+    enc["order1"]["ns_per_step"] = (enc["order1"]["ms"] * 1e6
+                                    / (4 * int(batch["ngroups"].sum())))
     del st, a
     payload, _ = native.entropy_encode(8, raw[0], {"bsVersion": 6})
     batch, _ = ans_device.decode_batch(np.frombuffer(payload, np.uint8), BLOCK, 1)
@@ -465,7 +479,9 @@ def main() -> int:
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None)
     del w_p, n_p
 
-    # K4 on the real lanes of the same four blocks' host Huffman payloads
+    # K4 on the real lanes of the same four blocks' host Huffman payloads:
+    # the Reader's launch decodes one block (its lanes and its tables);
+    # the four blocks' lanes in one launch are held and timed too
     lanes_l, tidx_l, dt_l, base = [], [], [], 0
     for post in posts4:
         payload, _ = native.entropy_encode(1, post, {"bsVersion": 6})
@@ -475,23 +491,34 @@ def main() -> int:
         tidx_l.append(np.repeat(np.nonzero(flags == 0)[0].astype(np.int32), 4) + base)
         dt_l.append(dt.copy())
         base += len(dt)
-    st = to_port_state({"lanes": np.concatenate(lanes_l),
-                        "table_idx": np.concatenate(tidx_l),
-                        "dtables": np.concatenate(dt_l)}, cuda)
-    dargs = (st["lanes"], st["table_idx"], st["dtables"])
-    s_k = ops_huffman.decode_lanes(*dargs)
-    s_p = ops_huffman._decode_lanes_plain(*dargs)
-    check(torch.equal(s_k, s_p), "decode_lanes kernel != plain")
-    L, S = st["lanes"].shape
-    ms = median_ms(torch, lambda: ops_huffman.decode_lanes(*dargs), 10)
+    one = to_port_state({"lanes": lanes_l[0], "table_idx": tidx_l[0],
+                         "dtables": dt_l[0]}, cuda)
+    four = to_port_state({"lanes": np.concatenate(lanes_l),
+                          "table_idx": np.concatenate(tidx_l),
+                          "dtables": np.concatenate(dt_l)}, cuda)
+    dargs, dargs4 = [tuple(x[k] for k in ("lanes", "table_idx", "dtables"))
+                     for x in (one, four)]
+    L, S = dargs[0].shape
+    # the engine's call: the table index flags come back beside the symbols
+    dbad = torch.empty(len(dargs4[0]), dtype=torch.int32, device=cuda)
+    err = 0.0
+    for a in (dargs, dargs4):
+        s_k = ops_huffman.decode_lanes(*a, dbad[:len(a[0])])
+        s_p = ops_huffman._decode_lanes_plain(*a)
+        check(torch.equal(s_k, s_p) and not dbad[:len(a[0])].any(),
+              f"decode_lanes kernel != plain at {list(a[0].shape)}")
+        err = max(err, float((s_k.int() - s_p.int()).abs().max().item()))
+    ms = median_ms(torch, lambda: ops_huffman.decode_lanes(*dargs, dbad[:L]), 10)
     plain_ms = median_ms(torch, lambda: ops_huffman._decode_lanes_plain(*dargs), 1, 0)
-    bms, bby = bound(L * S + L * 4 + st["dtables"].numel() * 2 + L * ops_huffman.FRAG,
-                     10 * L * ops_huffman.FRAG)
+    bms, bby = bound(L * S + L * 4 + dargs[2].numel() * 2 + L * ops_huffman.FRAG
+                     + L * 4, 10 * L * ops_huffman.FRAG)
     results["decode_lanes"] = dict(
         source="kanzi_tpu_torch/csrc/huffman.cu",
-        replaces="kanzi_tpu/ops/huffman.py:86", shape=[L, S],
-        max_abs_err=float((s_k.int() - s_p.int()).abs().max().item()),
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None)
+        replaces="kanzi_tpu/ops/huffman.py:86", shape=[L, S], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
+        ns_per_step=ms * 1e6 / ops_huffman.FRAG,
+        four_blocks=dict(shape=list(dargs4[0].shape), ms=median_ms(
+            torch, lambda: ops_huffman.decode_lanes(*dargs4, dbad), 10)))
     del s_p
     ans_range_kernels(torch, kt, native, raw, cuda, results)
     for name, r in results.items():
@@ -500,7 +527,11 @@ def main() -> int:
               f"({r['bound_by']}), library {r['library_ms']}, "
               f"max_abs_err {r['max_abs_err']}", flush=True)
         if "ns_per_step" in r:
-            print(f"  {name}: {r['ns_per_step']} ns per symbol", flush=True)
+            unit = "lane step" if name == "decode_lanes" else "symbol"
+            print(f"  {name}: {r['ns_per_step']} ns per {unit}", flush=True)
+        if "four_blocks" in r:
+            print(f"  {name}: four blocks' lanes in one launch, shape "
+                  f"{r['four_blocks']['shape']}: {r['four_blocks']['ms']:.4f} ms", flush=True)
         if "order1" in r:
             o = r["order1"]
             print(f"  {name} order 1: kernel {o['ms']:.4f} ms at shape "
@@ -509,6 +540,11 @@ def main() -> int:
                   f"{o['held_on']}, plain {o['plain_ms']:.4f} ms", flush=True)
             if "ns_per_step" in o:
                 print(f"  {name} order 1: {o['ns_per_step']} ns per symbol", flush=True)
+    # the SM clock, to turn ns per step into cycles
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"SM clock after the kernel phase (now, max): {clocks}", flush=True)
     phase_s["kernels"] = time.perf_counter() - t_phase
 
     # -- 3. the slice: Writer/Reader on the card --------------------------

@@ -42,9 +42,9 @@ _API = {
         "kz_entropy1024": [_P, _P, _I, _P, _P],
     },
     "huffman.cu": {
-        "kz_pack_lanes_u8": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-        "kz_pack_lanes_i32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-        "kz_decode_lanes": [_P, _I, _I, _P, _P, _P, _P],
+        "kz_pack_lanes_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        "kz_pack_lanes_i32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        "kz_decode_lanes": [_P, _I, _I, _P, _P, _I, _P, _P, _P],
     },
     "ans.cu": {
         "kz_ans_encode_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -202,8 +202,9 @@ def check(t: torch.Tensor, name: str, dtypes, ndim: int,
 
 
 def check_index(idx: torch.Tensor, name: str, bound: int) -> None:
-    """Raise unless every value of `idx` lies in [0, bound): the kernels
-    index tables with it unchecked. One reduction, read on the host."""
+    """Raise unless every value of `idx` lies in [0, bound), for the plain
+    versions (the kernels flag such an index themselves). One reduction,
+    read on the host."""
     if idx.numel() == 0:
         return
     lo, hi = torch.stack(torch.aminmax(idx)).tolist()

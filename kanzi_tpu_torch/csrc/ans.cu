@@ -9,13 +9,27 @@
 // then a cumsum + scatter that compacts the renorm pairs into stream order.
 // Bound: on the roofline, bytes (symbols and tables in, pairs out). In
 // practice latency: a state's steps form a chain (compare, shift, mulhi,
-// multiply-add), so a chunk takes its symbol count times one step.
-// Design: one thread per chunk runs its 4 states in emission order (group
-// g, state j). The reciprocal division is one __umulhi. The p-th renorm
-// pair goes to slot 4G-1-p, so the pairs lie in stream order at the end of
-// the row; when the chunk is done they move to the front and the rest of
-// the row is zeroed, which is the JAX compaction without a scan.
-//
+// multiply-add), so a chunk takes its group count times one step. No table
+// word depends on a state, so the design takes the table traffic off the
+// chain and runs the four states side by side:
+// - a CTA of 512 threads holds one order-1 row or four order-0 rows (an
+//   order-0 row's 256-entry table, 5 KiB, sits in shared memory whole);
+// - warps 4-15 gather the five table words of every symbol of the next
+//   tile of groups into shared memory (double-buffered, one barrier a
+//   tile) while warps 0-3 run the chains of the tile before;
+// - lane r of warp j runs state j of the CTA's row r, one group an
+//   iteration, with the entries two groups ahead read ahead; the
+//   reciprocal division is one __umulhi. A state's step stores its would-be
+//   pair at the group's slot of a shared-memory stage and its emit bit in
+//   a mask word, so nothing on the chain waits on another state;
+// - during the next tile, warp 4 + r compacts row r's staged pairs in
+//   (group, state) order, by the emit masks and a warp prefix sum, and
+//   appends them at the row's pair count, p = 0, 1, ...;
+// - when the chains are done, the whole CTA reverses [0, P) in place, which
+//   puts the pairs in stream order (pair p at slot P-1-p, the JAX
+//   compaction), and zeroes [P, 4G). Each thread swaps pairs of slots that
+//   no other thread touches, so P = 4G (every step emits) needs no scratch.
+
 // K6 kz_ans_decode replaces kanzi_tpu/ops/ans.py: decode_chunks, a lax.scan
 // over groups decoding states 3, 2, 1, 0 that share one byte cursor.
 // Bound: bytes on the roofline (microseconds). On the card, the latency of
@@ -46,61 +60,267 @@ namespace {
 
 constexpr unsigned kAnsTop = 1u << 15;
 
-// threads per CTA: spread the rows over the SMs (each row is one thread)
-int threads_for(int64_t rows) {
-    int64_t t = (rows + 131) / 132;
-    return (int)(t < 1 ? 1 : (t > 32 ? 32 : t));
+constexpr int kEncThreads = 512;     // warps 0-3 run the chains, 4-15 gather
+
+// rows a CTA and groups a tile: an order-0 (uint8) CTA carries four rows,
+// an order-1 (uint16) CTA one row; 2048 entries a tile
+template <typename Sym> struct EncShape {
+    static constexpr bool kOrder0 = sizeof(Sym) == 1;
+    static constexpr int kRows = kOrder0 ? 4 : 1;
+    static constexpr int kTile = 512 / kRows;
+    // entries of one row in a tile buffer: 4 a group, 8 that the chain's
+    // read-ahead may touch, and one more so that rows r and r + 1 of a
+    // chain warp read other banks
+    static constexpr int kRowEnt = 4 * kTile + 9;
+    static constexpr int kEnt = kRows * kRowEnt;
+    // u16 pair slots of one row in a tile's stage (4 a group, padded for
+    // the banks) and u32 emit masks (one a state and 32 groups)
+    static constexpr int kRowStage = 4 * kTile + 2;
+    static constexpr int kMaskWords = kTile / 32;
+    // shared memory: two buffers of (uint4 xMax, bias, cmplFreq, invFreq)
+    // and u32 shifts, two stages and two mask sets, one compacted stage,
+    // then the order-0 tables as uint4 and u32
+    static constexpr size_t kSmem = 2 * (size_t)kEnt * 20
+        + 3 * (size_t)kRows * kRowStage * 2 + 2 * (size_t)kRows * 4 * kMaskWords * 4
+        + (kOrder0 ? (size_t)kRows * 256 * 20 : 0);
+};
+
+template <typename Sym>
+__global__ void __launch_bounds__(kEncThreads)
+ans_encode_kernel(const Sym* __restrict__ syms,
+                  const int* __restrict__ ngroups,
+                  const unsigned* __restrict__ tables,
+                  int64_t B, int64_t G, int64_t S,
+                  uint16_t* __restrict__ pairs,
+                  int* __restrict__ npairs,
+                  unsigned* __restrict__ states) {
+    using Sh = EncShape<Sym>;
+    constexpr int R = Sh::kRows, T = Sh::kTile, E = Sh::kEnt, RS = Sh::kRowStage;
+    constexpr int MW = Sh::kMaskWords;
+    constexpr bool kOrder0 = Sh::kOrder0;
+    constexpr int kGather0 = 4 * 32;          // first gather thread
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint4* ent = (uint4*)smem;                       // [2][E]
+    uint4* tab4 = ent + 2 * E;                       // [R][256], order 0
+    unsigned* shr = (unsigned*)(tab4 + (kOrder0 ? R * 256 : 0));   // [2][E]
+    unsigned* tsh = shr + 2 * E;                     // [R][256], order 0
+    unsigned* fmask = tsh + (kOrder0 ? R * 256 : 0); // [2][R][4][MW]
+    uint16_t* stg = (uint16_t*)(fmask + 2 * R * 4 * MW);   // [2][R][RS]
+    uint16_t* cmp = stg + 2 * R * RS;                // [R][RS]
+    __shared__ int s_ng[R], s_np[R];
+    const int tid = threadIdx.x;
+    const int64_t row0 = (int64_t)blockIdx.x * R;
+    const int64_t W = 4 * G;
+    if (tid < R) {
+        int64_t ng = row0 + tid < B ? ngroups[row0 + tid] : 0;
+        s_ng[tid] = (int)(ng < 0 ? 0 : (ng > G ? G : ng));
+    }
+    if (kOrder0) {
+        for (int i = tid; i < R * 256; i += kEncThreads) {
+            const int64_t row = row0 + i / 256;
+            unsigned w5[5] = {0u, 0u, 0u, 0u, 0u};
+            if (row < B) {
+#pragma unroll
+                for (int k = 0; k < 5; ++k) w5[k] = __ldg(tables + (row * 5 + k) * S + (i & 255));
+            }
+            tab4[i] = make_uint4(w5[0], w5[1], w5[2], w5[4]);
+            tsh[i] = (w5[3] - 32u) & 31u;
+        }
+    }
+    __syncthreads();
+    int maxng = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) maxng = max(maxng, s_ng[r]);
+    const int ntiles = (maxng + T - 1) / T;
+    const bool vec = ((uintptr_t)syms & (4 * sizeof(Sym) - 1)) == 0;
+
+    // warps 4-15: the entries of tile t, one group of one row an item
+    auto gather = [&](int t) {
+        uint4* eb = ent + (t & 1) * E;
+        unsigned* sb = shr + (t & 1) * E;
+        for (int it = tid - kGather0; it < R * T; it += kEncThreads - kGather0) {
+            const int r = it / T, gg = it % T, g = t * T + gg;
+            if (g >= s_ng[r]) continue;
+            const int64_t row = row0 + r;
+            const Sym* sp = syms + (row * G + g) * 4;
+            unsigned s4[4];
+            if (vec) {
+                if constexpr (kOrder0) {
+                    const uchar4 v = __ldg((const uchar4*)sp);
+                    s4[0] = v.x; s4[1] = v.y; s4[2] = v.z; s4[3] = v.w;
+                } else {
+                    const ushort4 v = __ldg((const ushort4*)sp);
+                    s4[0] = v.x; s4[1] = v.y; s4[2] = v.z; s4[3] = v.w;
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) s4[j] = (unsigned)__ldg(sp + j);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int e = r * Sh::kRowEnt + 4 * gg + j;
+                if constexpr (kOrder0) {
+                    eb[e] = tab4[r * 256 + s4[j]];
+                    sb[e] = tsh[r * 256 + s4[j]];
+                } else {
+                    unsigned w5[5];
+#pragma unroll
+                    for (int k = 0; k < 5; ++k) w5[k] = __ldg(tables + (row * 5 + k) * S + s4[j]);
+                    eb[e] = make_uint4(w5[0], w5[1], w5[2], w5[4]);
+                    sb[e] = (w5[3] - 32u) & 31u;
+                }
+            }
+        }
+    };
+    // warp 4 + r (lane l): the pairs of row r in tile t, in (group, state)
+    // order, compacted by the emit masks and appended at the row's slot
+    // `base`; returns the new base
+    const int lane = tid & 31;
+    auto flush = [&](int t, int r, int base) {
+        constexpr int gpl = T / 32;              // groups a lane
+        static_assert(gpl < 32 && 32 % gpl == 0, "a lane's groups lie in one mask word");
+        const int n = min(T, maxng - t * T);     // groups of the tile
+        const unsigned* fm = fmask + ((t & 1) * R + r) * 4 * MW;
+        const int g0 = lane * gpl;
+        const int sh = g0 & 31;
+        const int mine = max(0, min(gpl, n - g0));   // this lane's groups in the tile
+        const unsigned keep = (1u << mine) - 1u;
+        unsigned m[4];
+        int cnt = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            m[j] = (fm[j * MW + (g0 >> 5)] >> sh) & keep;
+            cnt += __popc(m[j]);
+        }
+        int incl = cnt;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int v = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+            if (lane >= off) incl += v;
+        }
+        const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+        const uint16_t* sg = stg + ((t & 1) * R + r) * RS;
+        uint16_t* c = cmp + r * RS;
+        int k = incl - cnt;
+        for (int gg = 0; gg < gpl; ++gg) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if ((m[j] >> gg) & 1u) c[k++] = sg[4 * (g0 + gg) + j];
+            }
+        }
+        __syncwarp();
+        uint16_t* o = pairs + (row0 + r) * W + base;
+        for (int i = lane; i < total; i += 32) o[i] = c[i];
+        __syncwarp();
+        return base + total;
+    };
+
+    // warp j, lane r: state j of row r
+    const int j = tid >> 5, r = lane;
+    const bool chain = j < 4 && r < R;
+    const int ng = chain ? s_ng[r] : 0;
+    unsigned x = kAnsTop;
+    // warp 4 + r flushes row r and keeps its pair count
+    const bool flusher = tid >= kGather0 && j - 4 < R;
+    int base = 0;
+    if (tid >= kGather0) gather(0);
+    __syncthreads();
+    for (int t = 0; t < ntiles; ++t) {
+        if (chain) {
+            const uint4* eb = ent + (t & 1) * E + r * Sh::kRowEnt + j;
+            const unsigned* sb = shr + (t & 1) * E + r * Sh::kRowEnt + j;
+            uint16_t* sg = stg + ((t & 1) * R + r) * RS + j;
+            unsigned* fm = fmask + ((t & 1) * R + r) * 4 * MW + j * MW;
+            const int n = min(T, maxng - t * T);     // the same in every lane
+            const int gend = ng - t * T;             // this row's valid groups
+            uint4 e = eb[0], e1 = eb[4];             // xMax, bias, cmpl, invFreq
+            unsigned sh = sb[0], sh1 = sb[4];
+            unsigned bits = 0;
+#pragma unroll 4
+            for (int g = 0; g < n; ++g) {
+                // two groups ahead (stale past gend)
+                const uint4 e2 = eb[4 * (g + 2)];
+                const unsigned sh2 = sb[4 * (g + 2)];
+                const bool v = R == 1 || g < gend;
+                const bool flag = v && x >= e.x;
+                sg[4 * g] = (uint16_t)(x & 0xFFFFu);
+                bits |= (unsigned)flag << (g & 31);
+                if ((g & 31) == 31) {
+                    fm[g >> 5] = bits;
+                    bits = 0;
+                }
+                unsigned y = flag ? x >> 16 : x;
+                y = y + e.y + (__umulhi(y, e.w) >> (sh & 31u)) * e.z;
+                x = v ? y : x;
+                e = e1;
+                sh = sh1;
+                e1 = e2;
+                sh1 = sh2;
+            }
+            if (n & 31) fm[n >> 5] = bits;
+        } else if (tid >= kGather0) {
+            if (flusher && t > 0) base = flush(t - 1, j - 4, base);
+            if (t + 1 < ntiles) gather(t + 1);
+        }
+        __syncthreads();
+    }
+    if (flusher) {
+        if (ntiles > 0) base = flush(ntiles - 1, j - 4, base);
+        if (lane == 0) s_np[j - 4] = base;
+    }
+    if (chain && row0 + r < B) states[(row0 + r) * 4 + j] = x;
+    __syncthreads();
+    // pairs [0, P) in emission order -> stream order; zero past P
+    for (int rr = 0; rr < R && row0 + rr < B; ++rr) {
+        const int64_t P = s_np[rr], half = P / 2;
+        uint16_t* o = pairs + (row0 + rr) * W;
+        // eight swaps a thread in flight; no other thread touches the slots
+        for (int64_t i0 = tid; i0 < half; i0 += 8 * kEncThreads) {
+            uint16_t a[8], b[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                const int64_t i = i0 + k * kEncThreads;
+                if (i < half) {
+                    a[k] = o[i];
+                    b[k] = o[P - 1 - i];
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                const int64_t i = i0 + k * kEncThreads;
+                if (i < half) {
+                    o[i] = b[k];
+                    o[P - 1 - i] = a[k];
+                }
+            }
+        }
+        // zeros: u16 up to a 16-byte boundary, then 16 bytes a store
+        const int64_t head = (int64_t)(((16 - ((uintptr_t)(o + P) & 15)) & 15) / 2);
+        const int64_t z0 = P + (head < W - P ? head : W - P);
+        for (int64_t i = P + tid; i < z0; i += kEncThreads) o[i] = 0;
+        const int64_t nv = (W - z0) / 8;
+        uint4* ov = (uint4*)(o + z0);
+        for (int64_t i = tid; i < nv; i += kEncThreads) ov[i] = make_uint4(0u, 0u, 0u, 0u);
+        for (int64_t i = z0 + 8 * nv + tid; i < W; i += kEncThreads) o[i] = 0;
+        if (tid == 0) npairs[row0 + rr] = (int)P;
+    }
 }
 
 template <typename Sym>
-__global__ void ans_encode_kernel(const Sym* __restrict__ syms,
-                                  const int* __restrict__ ngroups,
-                                  const int* __restrict__ tables,
-                                  int64_t B, int64_t G, int64_t S,
-                                  uint16_t* __restrict__ pairs,
-                                  int* __restrict__ npairs,
-                                  unsigned* __restrict__ states) {
-    const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= B) return;
-    const Sym* sy = syms + row * G * 4;
-    const unsigned* t = (const unsigned*)tables + row * 5 * S;
-    const unsigned* xmax = t;
-    const unsigned* bias = t + S;
-    const unsigned* cmpl = t + 2 * S;
-    const unsigned* ishift = t + 3 * S;
-    const unsigned* ifreq = t + 4 * S;
-    uint16_t* out = pairs + row * G * 4;
-    const int64_t W = G * 4;
-    int64_t ng = ngroups[row];
-    ng = ng < 0 ? 0 : (ng > G ? G : ng);
-
-    unsigned st[4] = {kAnsTop, kAnsTop, kAnsTop, kAnsTop};
-    int64_t p = 0;
-    for (int64_t g = 0; g < ng; ++g) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const unsigned s = (unsigned)sy[g * 4 + j];
-            const unsigned xm = __ldg(xmax + s);
-            const unsigned bi = __ldg(bias + s);
-            const unsigned cf = __ldg(cmpl + s);
-            const unsigned sh = __ldg(ishift + s);
-            const unsigned fi = __ldg(ifreq + s);
-            unsigned x = st[j];
-            if (x >= xm) {
-                out[W - 1 - p] = (uint16_t)(x & 0xFFFFu);
-                ++p;
-                x >>= 16;
-            }
-            const unsigned q = __umulhi(x, fi) >> ((sh - 32u) & 31u);
-            st[j] = x + bi + q * cf;
-        }
-    }
-    // the pairs sit in stream order in [W-p, W): move them to the front
-    for (int64_t i = 0; i < p; ++i) out[i] = out[W - p + i];
-    for (int64_t i = p; i < W; ++i) out[i] = 0;
-    npairs[row] = (int)p;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) states[row * 4 + j] = st[j];
+int launch_encode(const void* syms, const void* ngroups, const void* tables,
+                  int64_t B, int64_t G, int64_t S, void* pairs, void* npairs,
+                  void* states, void* stream) {
+    if (B <= 0) return (int)cudaGetLastError();
+    using Sh = EncShape<Sym>;
+    cudaError_t rc = cudaFuncSetAttribute(
+        ans_encode_kernel<Sym>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Sh::kSmem);
+    if (rc != cudaSuccess) return (int)rc;
+    ans_encode_kernel<Sym><<<(unsigned)((B + Sh::kRows - 1) / Sh::kRows),
+                             kEncThreads, Sh::kSmem, (cudaStream_t)stream>>>(
+        (const Sym*)syms, (const int*)ngroups, (const unsigned*)tables, B, G,
+        S, (uint16_t*)pairs, (int*)npairs, (unsigned*)states);
+    return (int)cudaGetLastError();
 }
 
 // order-0 rows in shared memory: 2^14 entries of 8 bytes (lr <= 14) and a
@@ -301,28 +521,16 @@ extern "C" {
 int kz_ans_encode_u8(const void* syms, const void* ngroups, const void* tables,
                      int64_t B, int64_t G, int64_t S, void* pairs,
                      void* npairs, void* states, void* stream) {
-    if (B > 0) {
-        const int threads = threads_for(B);
-        ans_encode_kernel<uint8_t><<<(unsigned)((B + threads - 1) / threads),
-                                     threads, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)syms, (const int*)ngroups, (const int*)tables, B, G,
-            S, (uint16_t*)pairs, (int*)npairs, (unsigned*)states);
-    }
-    return (int)cudaGetLastError();
+    return launch_encode<uint8_t>(syms, ngroups, tables, B, G, S, pairs,
+                                  npairs, states, stream);
 }
 
 // as kz_ans_encode_u8, with u16 symbol indices (order 1, S = 65536)
 int kz_ans_encode_u16(const void* syms, const void* ngroups, const void* tables,
                       int64_t B, int64_t G, int64_t S, void* pairs,
                       void* npairs, void* states, void* stream) {
-    if (B > 0) {
-        const int threads = threads_for(B);
-        ans_encode_kernel<uint16_t><<<(unsigned)((B + threads - 1) / threads),
-                                      threads, 0, (cudaStream_t)stream>>>(
-            (const uint16_t*)syms, (const int*)ngroups, (const int*)tables, B,
-            G, S, (uint16_t*)pairs, (int*)npairs, (unsigned*)states);
-    }
-    return (int)cudaGetLastError();
+    return launch_encode<uint16_t>(syms, ngroups, tables, B, G, S, pairs,
+                                   npairs, states, stream);
 }
 
 // bufs (B, S) uint8, nbytes (B,) int32, states0 (B, 4) u32, f2s (B, F)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..core import ERR_PROCESS_BLOCK, KanziError
 from ..ops import huffman as ops_huffman
 from ..ops.state import to_port_state
 from . import device_io
@@ -147,6 +148,9 @@ class DeviceHuffmanEngine:
         if holder is not None and nl:
             words, nbits = holder.get()
             nbits = np.ascontiguousarray(nbits[lo:lo + nl])
+            if (nbits < 0).any():        # the kernel's table index flag
+                raise KanziError("huffman encode: a lane's table index is "
+                                 "out of range", ERR_PROCESS_BLOCK)
             lane_bytes = _lane_bytes(words[lo:lo + nl])
         else:
             nbits = np.zeros(0, dtype=np.int32)
@@ -158,7 +162,8 @@ class DeviceHuffmanEngine:
 def huffman_decode_device(payload, out_len: int, device) -> bytes:
     """Decode a Huffman entropy payload with the device pipeline; the
     lane decode runs on `device`. Byte-identical to the host decoder.
-    A payload that the host prepare rejects raises RuntimeError."""
+    A payload that the host prepare rejects raises RuntimeError; a lane
+    whose table index the kernel flags raises KanziError."""
     if out_len == 0:
         return b""
     device = torch.device(device)
@@ -170,8 +175,18 @@ def huffman_decode_device(payload, out_len: int, device) -> bytes:
         # the prepare's pooled views are copied here, before the next call
         st = to_port_state({"lanes": lanes, "table_idx": np.repeat(dev_chunks, 4),
                             "dtables": dtables}, device)
-        syms = ops_huffman.decode_lanes(st["lanes"], st["table_idx"],
-                                        st["dtables"]).cpu().numpy()
+        bad = torch.empty(len(lanes), dtype=torch.int32, device=device)
+
+        def run():
+            return st, (ops_huffman.decode_lanes(st["lanes"], st["table_idx"],
+                                                 st["dtables"], bad), bad)
+
+        # the symbols and the kernel's table index flags come back together
+        stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        syms, lane_bad = device_io.launch(stream, run).get()
+        if lane_bad.any():
+            raise KanziError("huffman decode: a lane's table index is out of "
+                             "range", ERR_PROCESS_BLOCK)
     else:
         syms = None
     out = np.empty(out_len, dtype=np.uint8)

@@ -75,6 +75,10 @@ def pack_lanes(syms: torch.Tensor, lane_len: torch.Tensor,
 
     Returns (words (L, nwords) int32 bit patterns of the big-endian u32
     stream, nbits (L,) int32) with nwords = (frag*12+31)//32 + 2.
+    A table_idx outside [0, C) raises ValueError on the CPU; on the card
+    the kernel reads no table for that lane and gives it nbits -1 and zero
+    words, which the caller reads with the result (no host round trip
+    before the launch).
     Replaces kanzi_tpu/ops/huffman.py: pack_lanes.
     """
     route = K.route(syms)
@@ -89,16 +93,16 @@ def pack_lanes(syms: torch.Tensor, lane_len: torch.Tensor,
                          f"tables (C, 256) for L={L}")
     if frag > FRAG:
         raise ValueError(f"pack_lanes: at most {FRAG} symbols per lane, got {frag}")
-    K.check_index(table_idx, "table_idx", tables.shape[0])
     if route == "plain":
+        K.check_index(table_idx, "table_idx", tables.shape[0])
         return _pack_lanes_plain(syms, lane_len, table_idx, tables)
     nwords = _nwords(frag)
     words = torch.empty(L, nwords, dtype=torch.int32, device=dev)
     nbits = torch.empty(L, dtype=torch.int32, device=dev)
     cfunc = "kz_pack_lanes_u8" if syms.dtype == torch.uint8 else "kz_pack_lanes_i32"
     K.launch("pack_lanes", cfunc, dev, syms.data_ptr(), lane_len.data_ptr(),
-             table_idx.data_ptr(), tables.data_ptr(), L, frag, nwords,
-             words.data_ptr(), nbits.data_ptr())
+             table_idx.data_ptr(), tables.data_ptr(), tables.shape[0], L, frag,
+             nwords, words.data_ptr(), nbits.data_ptr())
     return words, nbits
 
 
@@ -132,16 +136,22 @@ def _decode_lanes_plain(lanes, table_idx, dtables):
 
 
 def decode_lanes(lanes: torch.Tensor, table_idx: torch.Tensor,
-                 dtables: torch.Tensor) -> torch.Tensor:
+                 dtables: torch.Tensor, bad: torch.Tensor | None = None) -> torch.Tensor:
     """Batched table-driven Huffman decode, FRAG steps per lane.
 
     lanes:     (L, S) uint8   lane byte streams, zero-padded; bytes past S
                               read as zero
     table_idx: (L,)   int32   chunk/table index per lane, in [0, C)
     dtables:   (C, 4096) int16  code -> (symbol<<8)|length, as u16 bits
+    bad:       (L,)   int32   output, needed on the card: 1 where
+                              table_idx lies outside [0, C), else 0
 
     Returns symbols (L, FRAG) uint8 (garbage beyond each lane's true
     fragment size; the host slices per chunk).
+    A table_idx outside [0, C) raises ValueError on the CPU. On the card
+    the kernel reads no table for that lane, decodes it to zeros and flags
+    it in `bad`, which the caller reads with the symbols (no host round
+    trip before the launch), as pack_lanes' caller reads nbits -1.
     Replaces kanzi_tpu/ops/huffman.py: decode_lanes.
     """
     route = K.route(lanes)
@@ -155,10 +165,20 @@ def decode_lanes(lanes: torch.Tensor, table_idx: torch.Tensor,
                          f"(C, 4096) for L={L}")
     if S < 1:
         raise ValueError("decode_lanes: empty lane rows")
-    K.check_index(table_idx, "table_idx", dtables.shape[0])
+    if bad is None and route == "cuda":
+        raise ValueError("decode_lanes: on the card, pass `bad` for the "
+                         "kernel's table index flags")
+    if bad is not None:
+        K.check(bad, "bad", (torch.int32,), 1, dev)
+        if bad.shape[0] != L:
+            raise ValueError(f"decode_lanes: expected bad (L,) for L={L}")
     if route == "plain":
+        K.check_index(table_idx, "table_idx", dtables.shape[0])
+        if bad is not None:
+            bad.zero_()
         return _decode_lanes_plain(lanes, table_idx, dtables)
     out = torch.empty(L, FRAG, dtype=torch.uint8, device=dev)
     K.launch("decode_lanes", "kz_decode_lanes", dev, lanes.data_ptr(), L, S,
-             table_idx.data_ptr(), dtables.data_ptr(), out.data_ptr())
+             table_idx.data_ptr(), dtables.data_ptr(), dtables.shape[0],
+             out.data_ptr(), bad.data_ptr())
     return out

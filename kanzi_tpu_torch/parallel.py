@@ -25,7 +25,9 @@ def compress_step(blocks, lane_syms, lane_len, table_idx, tables,
     nbits (L,) i32, total_bits () i64), all on `device`.
 
     Numpy inputs are carried to `device` with to_port_state; tensors must
-    already lie there in the kernels' dtypes."""
+    already lie there in the kernels' dtypes. A table_idx outside [0, C)
+    raises ValueError on either device (on the card, from the kernel's
+    nbits -1, read once the step is done)."""
     device = _kernels.resolve_device(device)
     if device is None:
         raise ValueError("compress_step runs on a device: pass 'cuda' or 'cpu'")
@@ -36,5 +38,7 @@ def compress_step(blocks, lane_syms, lane_len, table_idx, tables,
     histos, ent = block_stats.block_stats(named["blocks"])
     words, nbits = ops_huffman.pack_lanes(named["syms"], named["lane_len"],
                                           named["table_idx"], named["tables"])
+    if bool((nbits < 0).any()):
+        raise ValueError(f"table_idx: values outside [0, {named['tables'].shape[0]})")
     total = torch.sum(nbits, dtype=torch.int64)
     return histos, ent, words, nbits, total

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from kanzi_tpu import native as jax_native
+from torch_jax_native import jax_native
 from kanzi_tpu.entropy import ans_device as jax_ans_device
 from kanzi_tpu.ops import ans as jax_ans
 import kanzi_tpu_torch as kt
@@ -21,6 +21,7 @@ from kanzi_tpu_torch.entropy import ans_device
 from kanzi_tpu_torch.ops import ans as ops_ans
 from kanzi_tpu_torch.ops.state import to_port_state
 from specmodel import ans as spec_ans
+from torch_edge_inputs import encode_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "SURVEY.md"), "rb") as _fh:
@@ -82,6 +83,23 @@ def test_encode_chunks_match_jax(order, n):
     assert np.array_equal(npairs.numpy(), np.asarray(want[1]))
     assert np.array_equal(states.numpy().view(np.uint32), np.asarray(want[2]))
     assert npairs[-1] == 0 and (states[-1].numpy() == ops_ans.ANS_TOP).all()
+
+
+@pytest.mark.parametrize("name", list(encode_cases()))
+def test_encode_chunks_edge_rows_match_jax(name):
+    # rows whose every step emits, ngroups 0 / partial / out of range with
+    # symbols past it, mixed ngroups in one batch, u16 indices at S = 65536
+    syms, ngroups, tables = encode_cases()[name]
+    want = jax_ans.encode_chunks(syms.astype(np.int32), ngroups, tables)
+    st = to_port_state({"ans_syms": syms, "ngroups": ngroups,
+                        "ans_tables": tables}, "cpu")
+    pairs, npairs, states = ops_ans.encode_chunks(st["ans_syms"], st["ngroups"],
+                                                  st["ans_tables"])
+    assert np.array_equal(pairs.numpy().view(np.uint16), np.asarray(want[0]))
+    assert np.array_equal(npairs.numpy(), np.asarray(want[1]))
+    assert np.array_equal(states.numpy().view(np.uint32), np.asarray(want[2]))
+    if name.startswith("emit_all"):
+        assert npairs[0] == 4 * syms.shape[1]
 
 
 def _decode_inputs(payload: bytes, n: int, order: int):

@@ -13,13 +13,16 @@ import pytest
 import torch
 
 import kanzi_tpu_torch as kt
-from kanzi_tpu_torch import _kernels, native
+from kanzi_tpu_torch import _kernels, native, parallel
+from kanzi_tpu_torch.core import KanziError
 from kanzi_tpu_torch.entropy import ans_device, range_device
-from kanzi_tpu_torch.entropy.huffman_device import huffman_decode_device
+from kanzi_tpu_torch.entropy.huffman_device import (huffman_decode_device,
+                                                    huffman_encode_device)
 from kanzi_tpu_torch.ops import ans as ops_ans, block_stats, huffman as ops_huffman
 from kanzi_tpu_torch.ops import range as ops_range
 from kanzi_tpu_torch.ops.state import to_port_state
 from specmodel import ans as spec_ans
+from torch_edge_inputs import decode_cases, encode_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -82,7 +85,7 @@ def test_decode_lanes_kernel_matches_plain(card):
     gpu = to_port_state(arrays, card)
     keys = ("lanes", "table_idx", "dtables")
     want = ops_huffman.decode_lanes(*(cpu[k] for k in keys))
-    got = ops_huffman.decode_lanes(*(gpu[k] for k in keys))
+    got = _decode_lanes(*(gpu[k] for k in keys))[0]
     assert torch.equal(got.cpu(), want)
     assert huffman_decode_device(payload, len(data), card) == data
 
@@ -99,6 +102,14 @@ def test_slice_on_card(card, level):
     assert _kernels.launches["pack_lanes"] > 0
     assert _kernels.launches["decode_lanes"] > 0
     assert sum(_kernels.plain_calls.values()) == 0
+
+
+def _decode_lanes(lanes, table_idx, dtables):
+    """decode_lanes with its table index flags, which must all be 0."""
+    bad = torch.ones(len(lanes), dtype=torch.int32, device=lanes.device)
+    out = ops_huffman.decode_lanes(lanes, table_idx, dtables, bad)
+    assert not bad.any()
+    return (out,)
 
 
 def _both(fn, arrays, keys, card, *extra):
@@ -292,3 +303,84 @@ def test_range_decode_kernel_matches_plain(card):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert got[1][:-1].tolist() == [nr for nr, _ in sizes]
     assert got[1][-1] == -1
+
+
+@pytest.mark.parametrize("name", list(encode_cases()))
+def test_ans_encode_kernel_edge_rows(card, name):
+    # every step emits (the in-place move at npairs = 4G), ngroups 0 /
+    # partial / out of range, mixed ngroups, u16 indices at S = 65536
+    syms, ngroups, tables = encode_cases()[name]
+    arrays = {"ans_syms": syms, "ngroups": ngroups, "ans_tables": tables}
+    got, want = _both(ops_ans.encode_chunks, arrays,
+                      ("ans_syms", "ngroups", "ans_tables"), card)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", list(decode_cases()))
+def test_decode_lanes_kernel_edge_inputs(card, name):
+    # four lanes a staged table, tables in no order (read from device
+    # memory), bit positions past odd strides, any u16 entry
+    lanes, table_idx, dtables = decode_cases()[name]
+    arrays = {"lanes": lanes, "table_idx": table_idx, "dtables": dtables}
+    got, want = _both(_decode_lanes, arrays,
+                      ("lanes", "table_idx", "dtables"), card)
+    assert torch.equal(got[0], want[0])
+
+
+def test_decode_lanes_kernel_many_lanes(card):
+    # more lanes than the card's SMs hold at eight a CTA
+    lanes, table_idx, dtables = decode_cases()["shared_quads"]
+    reps = -(-8 * torch.cuda.get_device_properties(card).multi_processor_count // len(lanes)) + 1
+    arrays = {"lanes": np.tile(lanes, (reps, 1)), "dtables": dtables,
+              "table_idx": np.tile(table_idx, reps)}
+    got, want = _both(_decode_lanes, arrays,
+                      ("lanes", "table_idx", "dtables"), card)
+    assert torch.equal(got[0], want[0])
+
+
+def test_table_index_flag_on_card(card, monkeypatch):
+    # K3 and K4 flag a table_idx outside [0, C) inside the kernel: no table
+    # is read for the lane, the wrappers do not check before the launch
+    lanes, table_idx, dtables = decode_cases()["shared_quads"]
+    st = to_port_state({"lanes": lanes, "table_idx": table_idx,
+                        "dtables": dtables}, card)
+    good = _decode_lanes(st["lanes"], st["table_idx"], st["dtables"])[0]
+    idx = st["table_idx"].clone()
+    idx[5], idx[17] = len(dtables), -1
+    with pytest.raises(ValueError, match="bad"):   # the flags have nowhere to go
+        ops_huffman.decode_lanes(st["lanes"], idx, st["dtables"])
+    bad = torch.empty(len(lanes), dtype=torch.int32, device=card)
+    out = ops_huffman.decode_lanes(st["lanes"], idx, st["dtables"], bad)
+    assert bad.nonzero().flatten().tolist() == [5, 17]
+    keep = bad == 0
+    assert torch.equal(out[keep], good[keep]) and not out[~keep].any()
+    rng = np.random.default_rng(9)
+    arrays = {"syms": rng.integers(0, 256, (8, 512)).astype(np.uint8),
+              "lane_len": np.full(8, 512, np.int32),
+              "table_idx": np.array([0, 1, 2, 3, 1, 0, 2, 3], np.int32),
+              "tables": rng.integers(0, 1 << 15, (4, 256)).astype(np.int32)}
+    p = to_port_state(arrays, card)
+    keys = ("syms", "lane_len", "table_idx", "tables")
+    w0, n0 = ops_huffman.pack_lanes(*(p[k] for k in keys))
+    p["table_idx"][2], p["table_idx"][6] = 4, -2
+    w1, n1 = ops_huffman.pack_lanes(*(p[k] for k in keys))
+    assert n1.tolist() == [n if i not in (2, 6) else -1 for i, n in enumerate(n0.tolist())]
+    assert not w1[[2, 6]].any() and torch.equal(w1[[0, 1, 3, 4, 5, 7]], w0[[0, 1, 3, 4, 5, 7]])
+    # compress_step raises on the flag, as it does on the CPU
+    blocks = rng.integers(0, 256, (2, 4096), dtype=np.uint8)
+    for device in (card, "cpu"):
+        with pytest.raises(ValueError, match=r"table_idx: values .*\[0, 4\)"):
+            parallel.compress_step(blocks, *(p[k].to(device) for k in keys), device=device)
+    # the engines raise KanziError on the flag read back with the result
+    data = np.frombuffer(_text(40000), np.uint8)
+    payload, _ = native.entropy_encode(1, data, {"bsVersion": 6})
+    prepare = native.huffman_dec_prepare
+    monkeypatch.setattr(native, "huffman_dec_prepare",
+                        lambda *a: (lambda r: (r[0][:1],) + tuple(r[1:]))(prepare(*a)))
+    with pytest.raises(KanziError, match="table index"):
+        huffman_decode_device(payload, len(data), card)
+    enc_prepare = native.huffman_prepare
+    monkeypatch.setattr(native, "huffman_prepare",
+                        lambda *a: (lambda r: (r[0][:0],) + tuple(r[1:]))(enc_prepare(*a)))
+    with pytest.raises(KanziError, match="table index"):
+        huffman_encode_device(data, card)

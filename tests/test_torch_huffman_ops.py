@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from kanzi_tpu import native as jax_native
+from torch_jax_native import jax_native
 from kanzi_tpu.ops import huffman as jax_huffman
 from kanzi_tpu_torch import _kernels, native
 from kanzi_tpu_torch.entropy.huffman_device import (DeviceHuffmanEngine,
@@ -17,6 +17,7 @@ from kanzi_tpu_torch.entropy.huffman_device import (DeviceHuffmanEngine,
                                                     huffman_encode_device)
 from kanzi_tpu_torch.ops import huffman as ops_huffman
 from kanzi_tpu_torch.ops.state import to_port_state
+from torch_edge_inputs import decode_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "SURVEY.md"), "rb") as _fh:
@@ -122,6 +123,20 @@ def test_decode_lanes_and_device_codec(name):
     assert huffman_decode_device(payload, len(data), "cpu") == data
     assert _kernels.plain_calls["decode_lanes"] == (1 if len(lanes) else 0)
     assert _kernels.launches["decode_lanes"] == 0
+
+
+@pytest.mark.parametrize("name", list(decode_cases()))
+def test_decode_lanes_edge_inputs_match_jax(name):
+    # four lanes a table, tables in no order, bit positions past the
+    # stride (odd strides), any u16 table entry
+    lanes, table_idx, dtables = decode_cases()[name]
+    want = np.asarray(jax_huffman.decode_lanes(lanes, table_idx, dtables))
+    st = to_port_state({"lanes": lanes, "table_idx": table_idx,
+                        "dtables": dtables}, "cpu")
+    bad = torch.ones(len(lanes), dtype=torch.int32)
+    got = ops_huffman.decode_lanes(st["lanes"], st["table_idx"], st["dtables"], bad)
+    assert np.array_equal(got.numpy(), want)
+    assert not bad.any()
 
 
 def test_to_port_state_dtypes_and_copies():

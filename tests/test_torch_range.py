@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from kanzi_tpu import native as jax_native
+from torch_jax_native import jax_native
 from kanzi_tpu.entropy import range_device as jax_range_device
 from kanzi_tpu.ops import range as jax_range
 import kanzi_tpu_torch as kt

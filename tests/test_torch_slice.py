@@ -13,7 +13,7 @@ import torch
 
 import kanzi_tpu
 import kanzi_tpu_torch as kt
-from kanzi_tpu import native as jax_native
+from torch_jax_native import jax_native
 from kanzi_tpu import parallel as jax_parallel
 from kanzi_tpu.kio import Writer as JaxWriter
 from kanzi_tpu_torch import _kernels, native, parallel

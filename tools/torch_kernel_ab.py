@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Time an earlier checkout's kernels against this one's on one CUDA card,
+on the same inputs, in turns.
+
+    python3 tools/torch_kernel_ab.py OLD_ROOT [CASE ...] [--out FILE]
+
+OLD_ROOT is the root of an earlier checkout of this repository (for
+example a `git archive` of the parent commit, unpacked). Its
+kanzi_tpu_torch/_kernels.py and ops/ are imported as a package of their
+own (kanzi_tpu_torch_old; its __init__ does not run), so its kernels build
+from its own csrc/ into its own build/ directory. Both versions are called
+through their public wrappers in ops/, whose signatures the port keeps; an
+output argument that only one version's wrapper names (decode_lanes' `bad`)
+is passed where the wrapper takes it. The inputs are those of
+chip_smoke.py's kernel phase. Each case is timed old, new, new, old, each
+turn the median of CUDA-event times, and the two versions' outputs must be
+identical. Prints one JSON line (and writes it to --out, if given): the
+card's name and power limit, and per case the four turns in ms.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import inspect
+import json
+import os
+import subprocess
+import sys
+import types
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+
+def old_ops(root: str):
+    """The earlier checkout's ops module loader: name -> module."""
+    name = "kanzi_tpu_torch_old"
+    pkg = types.ModuleType(name)
+    pkg.__path__ = [os.path.join(os.path.abspath(root), "kanzi_tpu_torch")]
+    sys.modules[name] = pkg
+    return lambda mod: importlib.import_module(f"{name}.ops.{mod}")
+
+
+def call(fn, args, outs):
+    """fn(*args) with the output arguments its signature names, as a tuple."""
+    params = inspect.signature(fn).parameters
+    got = fn(*args, **{k: v for k, v in outs.items() if k in params})
+    return got if isinstance(got, tuple) else (got,)
+
+
+def cases(torch, kt, native, raw, cuda):
+    """case name -> (ops module, wrapper name, args, output arguments, reps)."""
+    from kanzi_tpu_torch.entropy import ans_device
+    from kanzi_tpu_torch.entropy.huffman_device import DeviceHuffmanEngine
+    from kanzi_tpu_torch.ops.state import to_port_state
+
+    out = {}
+    posts4 = [raw[i] for i in range(4)]
+    _, b = DeviceHuffmanEngine(cuda).lane_batch(posts4)
+    st = to_port_state(dict(zip(("syms", "lane_len", "table_idx", "tables"), b)), cuda)
+    args = (st["syms"], st["lane_len"], st["table_idx"], st["tables"])
+    out[f"K3 {list(args[0].shape)}"] = ("huffman", "pack_lanes", args, {}, 20)
+
+    lanes_l, tidx_l, dt_l, base = [], [], [], 0
+    for post in posts4:
+        payload, _ = native.entropy_encode(1, post, {"bsVersion": 6})
+        dt, lanes, flags, _ = native.huffman_dec_prepare(np.frombuffer(payload, np.uint8),
+                                                         len(post))
+        lanes_l.append(lanes.copy())
+        tidx_l.append(np.repeat(np.nonzero(flags == 0)[0].astype(np.int32), 4) + base)
+        dt_l.append(dt.copy())
+        base += len(dt)
+    for arrays in ((lanes_l[0], tidx_l[0], dt_l[0]),      # the Reader's launch
+                   [np.concatenate(x) for x in (lanes_l, tidx_l, dt_l)]):
+        st = to_port_state(dict(zip(("lanes", "table_idx", "dtables"), arrays)), cuda)
+        args = (st["lanes"], st["table_idx"], st["dtables"])
+        bad = torch.empty(len(args[0]), dtype=torch.int32, device=cuda)
+        out[f"K4 {list(args[0].shape)}"] = ("huffman", "decode_lanes", args,
+                                            {"bad": bad}, 10)
+
+    for label, order, posts, reps in (
+            ("K5 ANS0", 0, cs.transform_posts(native, kt, raw[:4], cs.LEVEL5_CHAIN, "ANS0"), 10),
+            ("K5 ANS1", 1, list(raw[:4]), 3)):
+        st = to_port_state(ans_device.DeviceANSEngine(order, cuda).encode_batch(posts)[1],
+                           cuda)
+        args = (st["ans_syms"], st["ngroups"], st["ans_tables"])
+        out[f"{label} {list(args[0].shape)}"] = ("ans", "encode_chunks", args, {}, reps)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("old_root")
+    ap.add_argument("case", nargs="*", help="case names' prefixes (default: all)")
+    ap.add_argument("--out", help="also write the JSON line to this file")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import kanzi_tpu_torch as kt
+    from kanzi_tpu_torch import native
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    old = old_ops(args.old_root)
+    cuda = torch.device("cuda")
+    raw = np.frombuffer(cs.synth_corpus(cs.CORPUS), np.uint8).reshape(-1, cs.BLOCK)
+    result = {"device": smi, "cases": {}}
+    for label, (mod, fname, fargs, outs, reps) in cases(torch, kt, native, raw,
+                                                        cuda).items():
+        if args.case and not any(label.startswith(c) for c in args.case):
+            continue
+        new_fn = getattr(importlib.import_module(f"kanzi_tpu_torch.ops.{mod}"), fname)
+        old_fn = getattr(old(mod), fname)
+        run_old = lambda: call(old_fn, fargs, outs)  # noqa: E731
+        run_new = lambda: call(new_fn, fargs, outs)  # noqa: E731
+        got_old, got_new = run_old(), run_new()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got_old, got_new))
+        cs.check(same, f"{label}: old and new outputs differ")
+        ms = [cs.median_ms(torch, f, reps) for f in (run_old, run_new, run_new, run_old)]
+        result["cases"][label] = {"old_ms": [ms[0], ms[3]], "new_ms": [ms[1], ms[2]],
+                                  "identical": same}
+        print(f"{label}: old {ms[0]:.4f}, new {ms[1]:.4f}, new {ms[2]:.4f}, "
+              f"old {ms[3]:.4f} ms; outputs identical: {same}", flush=True)
+    line = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
