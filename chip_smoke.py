@@ -11,11 +11,12 @@ Phases, each failing hard (no exception is caught):
    on the card, at the shapes of the main path, with its median time from
    CUDA events, its roofline bound and (where one exists) the time of one
    PyTorch library call computing the same function; the rANS kernels'
-   and the range decode kernel's ns per symbol, K4's ns per lane step at
-   the Reader's one-block launch and its time on four blocks' lanes, K5
-   also held on a row whose
-   every step emits, the SM clock, and the RANGE chunk walk's host time
-   per chunk beside the range decode kernel's;
+   ns per symbol and the range kernels' ns per byte, K4's ns per lane step
+   at the Reader's one-block launch and its time on four blocks' lanes, K3
+   also held and timed at the level 3 Writer's launch, K5 also held on a
+   row whose every step emits, K7 and K8 also held on a row of u32 table
+   planes, the SM clock, and the RANGE chunk walk's host time per chunk
+   beside the range decode kernel's;
 3. the slice: a 64 MiB seeded corpus through compress/decompress at levels
    2, 3 and 5 on the card, and its first 16 MiB through the ANS1 and RANGE
    codecs, byte-identical to the host C++ path, each path read by the
@@ -49,6 +50,7 @@ SHORT = 16 * MIB          # the ANS1 and RANGE paths: a smaller depth
 SEED = 0x4B414E5A
 SLICE_REPS = 3
 SHORT_REPS = 3
+LEVEL3_CHAIN = "TEXT+UTF+PACK+MM+LZX"
 LEVEL5_CHAIN = "TEXT+UTF+BWT+RANK+ZRLT"
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
@@ -258,13 +260,36 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     B, N = a[0].shape
     nb = int(batch["nvalid"].sum())
     bms, bby = bound(nbytes_of(*a) + B * 2 * N * 4 + B * 12, 20 * nb)
-    results["range_encode"] = dict(
+    r7 = results["range_encode"] = dict(
         source="kanzi_tpu_torch/csrc/range.cu", replaces="kanzi_tpu/ops/range.py:109",
         shape=[B, N], max_abs_err=err,
         ms=median_ms(torch, lambda: ops_range.encode_chunks(*a), 10),
         plain_ms=median_ms(torch, lambda: ops_range._encode_chunks_plain(*a), 1, 0),
         bound_ms=bms, bound_by=bby, library_ms=None)
-    del st, a
+    # the chain's time a byte: one launch runs every row's chain at once,
+    # so the longest row sets it
+    r7["ns_per_step"] = r7["ms"] * 1e6 / int(batch["nvalid"].max())
+    # K7 and K8 on one row of u32 table planes (cumFreq at or above 2^31,
+    # freq mostly below 16): kernel against plain
+    rng = np.random.default_rng(SEED)
+    t = rng.integers(1 << 31, 1 << 32, (1, 2, 256), dtype=np.uint64)
+    small = rng.random(256) < 0.9
+    t[0, 1, small] = rng.integers(1, 16, int(small.sum()), dtype=np.uint64)
+    t32 = torch.from_numpy(t.astype(np.uint32).view(np.int32)).to(cuda)
+    u = (a[0][:1, :4096].contiguous(), torch.full((1,), 4096, dtype=torch.int32, device=cuda),
+         t32, a[3][:1].clone())
+    r7["max_abs_err"] = max(err, hold(torch, ops_range.encode_chunks,
+                                      ops_range._encode_chunks_plain, u))
+    check(int(ops_range.encode_chunks(*u)[1].item()) > 0, "u32 row: no word emitted")
+    glen_u = 2048
+    ubuf = torch.from_numpy(rng.integers(0, 256, (1, 8 * glen_u), dtype=np.uint8)).to(cuda)
+    u_dec = (ubuf, torch.full((1,), 8 * glen_u, dtype=torch.int32, device=cuda), t32,
+             torch.from_numpy(rng.integers(0, 256, (1, 4096), dtype=np.uint8)).to(cuda),
+             torch.full((1,), 12, dtype=torch.int32, device=cuda),
+             torch.full((1,), glen_u, dtype=torch.int32, device=cuda))
+    u32_dec_err = hold(torch, ops_range.decode_chunks, ops_range._decode_chunks_plain,
+                       u_dec, (glen_u,))
+    del st, a, u, u_dec
 
     # K8: the first chunk of one block's host RANGE payload, one row as the
     # Reader's chunk walk launches it
@@ -279,7 +304,7 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     bms, bby = bound(nbytes_of(*a) + glen + 4, 30 * glen)
     r = results["range_decode"] = dict(
         source="kanzi_tpu_torch/csrc/range.cu", replaces="kanzi_tpu/ops/range.py:186",
-        shape=[1, glen], max_abs_err=err,
+        shape=[1, glen], max_abs_err=max(err, u32_dec_err),
         ms=median_ms(torch, lambda: ops_range.decode_chunks(*a, glen), 20),
         plain_ms=median_ms(torch, lambda: ops_range._decode_chunks_plain(*a, glen), 1, 0),
         bound_ms=bms, bound_by=bby, library_ms=None)
@@ -478,6 +503,18 @@ def main() -> int:
                               (n_k - n_p).abs().max().item())),
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None)
     del w_p, n_p
+    # K3 at the level 3 Writer's launch (jobs=1: one block's lanes)
+    _, b3 = engine.lane_batch(transform_posts(native, kt, raw[:1], LEVEL3_CHAIN, "HUFFMAN"))
+    st3 = to_port_state(dict(zip(("syms", "lane_len", "table_idx", "tables"), b3)), cuda)
+    args3 = (st3["syms"], st3["lane_len"], st3["table_idx"], st3["tables"])
+    err3 = hold(torch, ops_huffman.pack_lanes, ops_huffman._pack_lanes_plain, args3)
+    L3 = args3[0].shape[0]
+    bms3, bby3 = bound(L3 * frag + 2 * L3 * 4 + b3[3].shape[0] * 256 * 4
+                       + L3 * ops_huffman.WORDS * 4 + L3 * 4, 5 * int(b3[1].sum()))
+    results["pack_lanes"]["max_abs_err"] = max(results["pack_lanes"]["max_abs_err"], err3)
+    results["pack_lanes"]["level3"] = dict(
+        shape=list(args3[0].shape), bound_ms=bms3, bound_by=bby3,
+        ms=median_ms(torch, lambda: ops_huffman.pack_lanes(*args3), 20))
 
     # K4 on the real lanes of the same four blocks' host Huffman payloads:
     # the Reader's launch decodes one block (its lanes and its tables);
@@ -527,8 +564,14 @@ def main() -> int:
               f"({r['bound_by']}), library {r['library_ms']}, "
               f"max_abs_err {r['max_abs_err']}", flush=True)
         if "ns_per_step" in r:
-            unit = "lane step" if name == "decode_lanes" else "symbol"
+            unit = {"decode_lanes": "lane step", "range_encode": "byte",
+                    "range_decode": "byte"}.get(name, "symbol")
             print(f"  {name}: {r['ns_per_step']} ns per {unit}", flush=True)
+        if "level3" in r:
+            o = r["level3"]
+            print(f"  {name}: the level 3 Writer's launch, shape {o['shape']}: "
+                  f"{o['ms']:.4f} ms, bound {o['bound_ms']:.6f} ms ({o['bound_by']})",
+                  flush=True)
         if "four_blocks" in r:
             print(f"  {name}: four blocks' lanes in one launch, shape "
                   f"{r['four_blocks']['shape']}: {r['four_blocks']['ms']:.4f} ms", flush=True)
@@ -540,6 +583,9 @@ def main() -> int:
                   f"{o['held_on']}, plain {o['plain_ms']:.4f} ms", flush=True)
             if "ns_per_step" in o:
                 print(f"  {name} order 1: {o['ns_per_step']} ns per symbol", flush=True)
+    print(f"range coder chain, ns per byte: K7 range_encode "
+          f"{results['range_encode']['ns_per_step']}, K8 range_decode "
+          f"{results['range_decode']['ns_per_step']}", flush=True)
     # the SM clock, to turn ns per step into cycles
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],

@@ -4,19 +4,31 @@
 //
 // K3 kz_pack_lanes replaces kanzi_tpu/ops/huffman.py: pack_lanes, an XLA
 // gather + cumsum + scatter-add program.
-// Bound: bytes. Per lane it reads FRAG symbols and writes 1538 words; the
-// work per symbol is a table lookup, a scan step and two shared atomics.
-// Design: one CTA of 256 threads per lane. The lane's 256-entry code table
-// is staged in shared memory; thread t owns the 16 consecutive symbols
-// [16t, 16t+16), looks up their (len<<12)|code entries, and a block-wide
-// exclusive scan of the per-thread bit counts (warp shuffles, then one
-// pass over the 8 warp totals) gives every code its bit offset. Codes are
-// placed into 1538 shared u32 words with atomicOr; the codes of a prefix
-// code do not overlap, so OR gives what the JAX scatter-add gives. A code
-// that straddles a word boundary is split into a high and a low part with
-// explicit cases, since a CUDA shift by 32 or more is undefined (the JAX
-// version clamps its shift counts instead). Words then go out to global
-// memory as int32 bit patterns of the big-endian u32 stream.
+// Bound: bytes. Per lane it reads FRAG symbols and writes 1538 words; on
+// the card, the latency of a CTA's few dependent phases times the waves of
+// CTAs an SM runs. Design: one CTA of 256 threads per lane, two barriers
+// before the words go out; thread t owns the 16 consecutive symbols
+// [16t, 16t+16):
+// - it loads them with 16-byte loads (one for uint8 symbols, four for
+//   int32) where the row is 16-byte aligned, else one at a time, while the
+//   lane's table index and its 256-entry code table (staged in shared
+//   memory) load;
+// - a block-wide exclusive scan of the per-thread bit counts (warp
+//   shuffles, then one pass over the 8 warp totals) gives every code its
+//   bit offset;
+// - a lane whose table is narrow (code < 2^len, len <= 32: every host
+//   table) runs a bit writer per thread; any other table takes each code's
+//   high and low parts as the plain version computes them (shift counts
+//   clamped, so no CUDA shift reaches 32), summed mod 2^32 per word as the
+//   JAX scatter-add sums them: exact for codes wider than their length and
+//   for any length. Either way a thread's words come in word order: it
+//   stores each word it alone covers, and only the first and last words
+//   it touches, which it may share with other threads, are merged with a
+//   shared atomicAdd;
+// - the words go out with 16-byte stores as int32 bit patterns of the
+//   big-endian u32 stream.
+// A negative entry used by a valid symbol (a negative length) makes the
+// lane write no part, as a bad table index does: nbits -1 and zero words.
 //
 // K4 kz_decode_lanes replaces kanzi_tpu/ops/huffman.py: decode_lanes, a
 // lax.scan of FRAG steps over all lanes.
@@ -56,39 +68,162 @@ constexpr int kMaxWords = (kFrag * 12 + 31) / 32 + 2;  // 1538
 constexpr int kPackThreads = 256;
 constexpr int kItems = kFrag / kPackThreads;           // 16 symbols a thread
 
+// Symbols [i0, i0 + 16) of a row into s[]; those at or past n (the lane's
+// valid count) read as 0. A 16-byte-aligned row takes 16-byte loads (one
+// for uint8 symbols, four for int32), issued before n is known; any other
+// row, or a thread whose symbols reach past frag, loads one valid symbol
+// at a time.
+__device__ __forceinline__ void load_items(const uint8_t* row, int i0, int n,
+                                           int frag, int (&s)[kItems]) {
+    if (((uintptr_t)row & 15) == 0 && i0 + kItems <= frag) {
+        const uint4 v = __ldg((const uint4*)(row + i0));
+        const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < kItems; ++k)
+            s[k] = i0 + k < n ? (int)((u[k >> 2] >> (8 * (k & 3))) & 0xFFu) : 0;
+    } else {
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) s[k] = i0 + k < n ? (int)row[i0 + k] : 0;
+    }
+}
+
+__device__ __forceinline__ void load_items(const int* row, int i0, int n,
+                                           int frag, int (&s)[kItems]) {
+    if (((uintptr_t)row & 15) == 0 && i0 + kItems <= frag) {
+#pragma unroll
+        for (int q = 0; q < kItems / 4; ++q) {
+            const int4 v = __ldg((const int4*)(row + i0) + q);
+            s[4 * q] = v.x;
+            s[4 * q + 1] = v.y;
+            s[4 * q + 2] = v.z;
+            s[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) s[k] = i0 + k < n ? s[k] : 0;
+    } else {
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) s[k] = i0 + k < n ? row[i0 + k] : 0;
+    }
+}
+
+// One thread's parts into the lane's words (zeroed shared memory), in word
+// order: the first and last words a thread touches may be shared with
+// other threads and are added with a shared atomicAdd; every word between
+// them is its own and is stored.
+//
+// Fast path, for a lane whose table entries are all narrow (code < 2^len)
+// and at most 32 bits long, as every host table's are: a bit writer. The
+// codes are shifted into a 64-bit accumulator; each full word goes out as
+// it fills. Narrow codes do not overlap, so this is the plain version's sum.
+__device__ __forceinline__ void put_narrow(unsigned* w, const int (&code)[kItems],
+                                           int off, int nwords) {
+    int wi = off >> 5;
+    int nb = off & 31;               // bits held; the first ones are 0 here
+    uint64_t acc = 0;
+    bool first = true;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+        const int len = code[k] >> 12;
+        acc = (acc << len) | (unsigned)(code[k] & 0xFFF);
+        nb += len;
+        if (nb >= 32) {
+            nb -= 32;
+            const unsigned word = (unsigned)(acc >> nb);
+            acc &= (1ull << nb) - 1;
+            if (wi < nwords) {
+                if (first) atomicAdd(&w[wi], word);
+                else w[wi] = word;
+            }
+            first = false;
+            ++wi;
+        }
+    }
+    if (nb > 0 && wi < nwords) atomicAdd(&w[wi], (unsigned)(acc << (32 - nb)));
+}
+
+// Any codes: each code's high and low parts as the plain version computes
+// them (shift counts clamped, so no CUDA shift reaches 32), summed mod 2^32
+// per word, words past nwords dropped. A thread's parts come in word order,
+// so it sums a word's parts in a register before it writes the word.
+__device__ void put_any(unsigned* w, const int (&code)[kItems], int off,
+                        int nwords) {
+    int cur = -1;
+    unsigned acc = 0u;
+    bool first = true;
+    auto add = [&](int wi, unsigned v) {
+        if (v == 0u || wi >= nwords) return;
+        if (wi != cur) {
+            if (cur >= 0) {
+                if (first) atomicAdd(&w[cur], acc);
+                else w[cur] = acc;
+                first = false;
+            }
+            cur = wi;
+            acc = 0u;
+        }
+        acc += v;
+    };
+    for (int k = 0; k < kItems; ++k) {
+        const int len = code[k] >> 12;
+        const unsigned val = (unsigned)(code[k] & 0xFFF);
+        const int wi = off >> 5;
+        const int s1 = 32 - (off & 31) - len;
+        if (s1 >= 0) {
+            add(wi, s1 < 32 ? val << s1 : 0u);   // 32: a zero length at bit 0
+        } else {
+            add(wi, val >> (-s1 < 31 ? -s1 : 31));
+            add(wi + 1, val << (32 + s1 > 0 ? 32 + s1 : 0));
+        }
+        off += len;
+    }
+    if (cur >= 0) atomicAdd(&w[cur], acc);
+}
+
 template <typename Sym>
-__global__ void pack_lanes_kernel(const Sym* __restrict__ syms,
-                                  const int* __restrict__ lane_len,
-                                  const int* __restrict__ table_idx,
-                                  const int* __restrict__ tables,
-                                  int64_t C, int frag, int nwords,
-                                  int* __restrict__ words,
-                                  int* __restrict__ nbits) {
+__global__ void __launch_bounds__(kPackThreads)
+pack_lanes_kernel(const Sym* __restrict__ syms,
+                  const int* __restrict__ lane_len,
+                  const int* __restrict__ table_idx,
+                  const int* __restrict__ tables,
+                  int64_t C, int frag, int nwords,
+                  int* __restrict__ words,
+                  int* __restrict__ nbits) {
+    __shared__ __align__(16) unsigned w[kMaxWords + 2];
     __shared__ int tab[256];
-    __shared__ unsigned int w[kMaxWords];
     __shared__ int warp_sum[kPackThreads / 32];
     const int lane = blockIdx.x;
     const int tid = threadIdx.x;
+    const int lv = lane_len[lane];
     const int64_t t = table_idx[lane];
-    const bool bad = t < 0 || t >= C;       // no table is read for it
-    tab[tid] = bad ? 0 : tables[t * 256 + tid];
-    for (int i = tid; i < nwords; i += kPackThreads) w[i] = 0u;
-    __syncthreads();
-
-    const int len_valid = lane_len[lane];
-    const Sym* row = syms + (int64_t)lane * frag;
+    const int n = lv < 0 ? 0 : (lv > frag ? frag : lv);
+    const int i0 = tid * kItems;
+    // the symbols load first: they do not wait on the table
     int code[kItems];
+    load_items(syms + (int64_t)lane * frag, i0, n, frag, code);
+    const bool bad_idx = t < 0 || t >= C;   // no table is read for it
+    const int e = bad_idx ? 0 : __ldg(tables + t * 256 + tid);
+    tab[tid] = e;
+    for (int i = tid; i < (nwords + 3) / 4; i += kPackThreads)
+        ((uint4*)w)[i] = make_uint4(0u, 0u, 0u, 0u);
+    // the lane takes the bit writer when every entry of its table is
+    // narrow and at most 32 bits long (a negative entry is flagged below,
+    // if a valid symbol uses it)
+    const int el = e >> 12;
+    const bool narrow = __syncthreads_and(
+        e < 0 || (el <= 32 && (el >= 12 || ((e & 0xFFF) >> el) == 0)));
+
     int total = 0;
+    bool neg = false;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-        const int i = tid * kItems + k;
-        int c = 0;
-        if (i < frag && i < len_valid) c = tab[((int)row[i]) & 0xFF];
+        const int c = i0 + k < n ? tab[code[k] & 0xFF] : 0;
+        neg |= c < 0;
         code[k] = c;
         total += c >> 12;
     }
 
-    // block-wide exclusive scan of the per-thread bit counts
+    // block-wide exclusive scan of the per-thread bit counts; the barrier
+    // also tells every thread whether any entry was negative
     const int lid = tid & 31;
     int incl = total;
 #pragma unroll
@@ -97,7 +232,8 @@ __global__ void pack_lanes_kernel(const Sym* __restrict__ syms,
         if (lid >= off) incl += v;
     }
     if (lid == 31) warp_sum[tid >> 5] = incl;
-    __syncthreads();
+    // a negative entry (a negative length) flags the lane as a bad index does
+    const bool bad = __syncthreads_or(neg) || bad_idx;
     int warp_base = 0;
     int all = 0;
 #pragma unroll
@@ -106,29 +242,26 @@ __global__ void pack_lanes_kernel(const Sym* __restrict__ syms,
         if (q < (tid >> 5)) warp_base += s;
         all += s;
     }
-    int off = warp_base + incl - total;
-
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-        const int len = code[k] >> 12;
-        const unsigned int val = (unsigned int)(code[k] & 0xFFF);
-        if (val != 0u) {  // a zero code adds no bits
-            const int word = off >> 5;
-            const int s1 = 32 - (off & 31) - len;
-            if (s1 >= 0) {
-                // s1 == 32 only for a zero-length entry: its bits shift out
-                if (s1 < 32 && word < nwords) atomicOr(&w[word], val << s1);
-            } else {
-                if (word < nwords) atomicOr(&w[word], val >> (-s1));
-                if (word + 1 < nwords) atomicOr(&w[word + 1], val << (32 + s1));
-            }
-        }
-        off += len;
+    if (!bad) {
+        const int off = warp_base + incl - total;
+        if (narrow) put_narrow(w, code, off, nwords);
+        else put_any(w, code, off, nwords);
     }
     __syncthreads();
 
+    // out: four words a 16-byte store from the first aligned word on
     int* out = words + (int64_t)lane * nwords;
-    for (int i = tid; i < nwords; i += kPackThreads) out[i] = (int)w[i];
+    const int head = (int)(((16 - ((uintptr_t)out & 15)) & 15) >> 2);
+    const int h = head < nwords ? head : nwords;
+    if (tid < h) out[tid] = (int)w[tid];
+    const int nvec = (nwords - h) >> 2;
+    for (int i = tid; i < nvec; i += kPackThreads) {
+        const int b = h + 4 * i;
+        ((int4*)(out + h))[i] = make_int4((int)w[b], (int)w[b + 1], (int)w[b + 2],
+                                          (int)w[b + 3]);
+    }
+    const int tail = h + 4 * nvec + tid;
+    if (tail < nwords) out[tail] = (int)w[tail];
     if (tid == 0) nbits[lane] = bad ? -1 : all;
 }
 
@@ -324,7 +457,7 @@ extern "C" {
 
 // syms (L, frag) uint8, lane_len/table_idx (L,) int32, tables (C, 256)
 // int32 -> words (L, nwords) int32, nbits (L,) int32 (-1: table_idx
-// outside [0, C)). frag <= 4096.
+// outside [0, C), or a negative entry for a valid symbol). frag <= 4096.
 int kz_pack_lanes_u8(const void* syms, const void* lane_len,
                      const void* table_idx, const void* tables, int64_t C,
                      int64_t L, int64_t frag, int64_t nwords, void* words,

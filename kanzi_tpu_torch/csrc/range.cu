@@ -16,8 +16,23 @@
 // lax.scan of one step per byte followed by a cumsum + scatter that
 // compacts the 28-bit words. Bound: bytes on the roofline; in practice
 // latency, each byte being a chain of 64-bit multiplies and compares.
-// Design: one thread per chunk writes its words in order, with no
-// compaction, then zeroes the rest of its row.
+// Design, so that a step is the chain's own ALU work:
+// - one CTA of four warps per row; the first thread of warp 0 runs the
+//   chain, alone in its warp;
+// - the CTA stages the row's tables (cumFreq, freq as u32, as kanzi_tpu
+//   reads them) in shared memory; warps 1-3 read each 1 KiB tile of the
+//   row with 16-byte loads and write each byte's (cumFreq, freq) pair into
+//   a double-buffered shared tile a tile ahead of the chain, which loads
+//   the pairs of each group of four bytes while it computes the group
+//   before;
+// - a byte's renormalization is one pass of predicated selects; a second
+//   emission in one byte needs the range left below 2^32, or within 2^32
+//   of 2^60, by the first (as where freq is 0 or 1, or the shift is past
+//   63): a cheap test flags it and the group of four bytes is redone
+//   exactly, so the chain takes no branch a byte;
+// - the chain appends its words to a double-buffered shared stage, which
+//   the helpers copy out in order, coalesced, during the next tile; at
+//   the end the whole CTA zeroes [nwords, 2N) with 16-byte stores.
 //
 // K8 kz_range_decode replaces kanzi_tpu/ops/range.py: decode_chunks. Bound:
 // bytes on the roofline (microseconds). On the card, the latency of one
@@ -31,9 +46,9 @@
 //   64-bit multiply-compare that corrects it by 1, not a 64-bit division;
 //   the slot entry at the estimate loads while the check runs, and the
 //   walker keeps code - low, the dividend, in place of code;
-// - a 4096-entry slot table (symbol | cumFreq << 8, freq) in shared
-//   memory, the plain version's `comb`: one load a byte where there were
-//   three dependent ones (map, then cumFreq and freq);
+// - a 4096-entry slot table (cumFreq, freq), both u32 as kanzi_tpu reads
+//   them, and a 4096-byte slot -> symbol table beside it in shared memory:
+//   two loads a byte, issued together at the estimate;
 // - the k-th 28-bit read (bit 60 + 28k of the row) computed by the CTA
 //   into shared memory up front, as the plain version's `reads`, indexed
 //   by the read count; the walker holds the next two in registers;
@@ -51,11 +66,6 @@ constexpr uint64_t kTop = kM60;                  // TOP_RANGE
 constexpr uint64_t kBottom = 0xFFFFull;          // BOTTOM_RANGE
 constexpr uint64_t kRangeMask = 0x0FFFFFFF00000000ull;
 
-int threads_for(int64_t rows) {
-    int64_t t = (rows + 131) / 132;
-    return (int)(t < 1 ? 1 : (t > 32 ? 32 : t));
-}
-
 __device__ __forceinline__ int clamp_shift(int s) {
     return s < 0 ? 0 : (s > 63 ? 63 : s);
 }
@@ -72,50 +82,221 @@ __device__ __forceinline__ bool renorm_done(uint64_t low, uint64_t& rng) {
     return false;
 }
 
-__global__ void range_encode_kernel(const uint8_t* __restrict__ syms,
-                                    int64_t N,
-                                    const int* __restrict__ nvalid,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ shifts,
-                                    int64_t B, int* __restrict__ words,
-                                    int* __restrict__ nwords,
-                                    unsigned* __restrict__ lows) {
-    const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= B) return;
-    const uint8_t* s = syms + row * N;
-    const unsigned* cum_t = (const unsigned*)tables + row * 512;
-    const unsigned* freq_t = cum_t + 256;
-    const int sh = clamp_shift(shifts[row]);
-    int64_t nv = nvalid[row];
-    nv = nv < 0 ? 0 : (nv > N ? N : nv);
-    int* w = words + row * 2 * N;
+constexpr int kEncThreads = 128;     // warp 0: the chain; warps 1-3: helpers
+constexpr int kEncHelpers = kEncThreads - 32;
+constexpr int kEncTile = 1024;       // bytes a tile (a multiple of 16)
 
-    uint64_t low = 0, rng = kTop;
-    int64_t k = 0;
-    for (int64_t i = 0; i < nv; ++i) {
-        const unsigned b = s[i];
-        const uint64_t r2 = rng >> sh;
-        low = (low + (uint64_t)__ldg(cum_t + b) * r2) & kM60;
-        rng = ((uint64_t)__ldg(freq_t + b) * r2) & kM60;
+// Helper h of the helper warps writes (cumFreq, freq) of the tile's bytes
+// [0, n) into p: 16-byte loads of the row where the tile start is 16-byte
+// aligned and the 16 bytes lie in the row, else one byte at a time.
+__device__ __forceinline__ void stage_pairs(const uint8_t* src, int64_t left,
+                                            int n, const unsigned* tab,
+                                            uint2* p, int h) {
+    const bool vec = ((uintptr_t)src & 15) == 0;
+    for (int g = h; 16 * g < n; g += kEncHelpers) {
+        if (vec && 16 * g + 16 <= left) {
+            const uint4 v = __ldg((const uint4*)src + g);
+            const unsigned u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int it = 0; it < 2; ++it) {
-            if (renorm_done(low, rng)) break;
-            w[k++] = (int)(low >> 32);
-            low = (low << 28) & kM60;
-            rng = (rng << 28) & kM60;
+            for (int j = 0; j < 16; ++j) {
+                const unsigned b = (u[j >> 2] >> (8 * (j & 3))) & 0xFFu;
+                p[16 * g + j] = make_uint2(tab[b], tab[256 + b]);
+            }
+        } else {
+            for (int j = 16 * g; j < 16 * g + 16 && j < n; ++j) {
+                const unsigned b = src[j];
+                p[j] = make_uint2(tab[b], tab[256 + b]);
+            }
         }
     }
-    for (int64_t i = k; i < 2 * N; ++i) w[i] = 0;
-    nwords[row] = (int)k;
-    lows[2 * row] = (unsigned)low;
-    lows[2 * row + 1] = (unsigned)(low >> 32);
+}
+
+// Whether the state renormalizes (emits a word): the top 28 of the 60
+// bits of low and low + rng agree, or rng is small. low may carry bits
+// above 59: they never reach bits 32..59 of the sum, and a shift by 28
+// drops them; rng stays masked, since it is shifted down.
+__device__ __forceinline__ bool emits(uint64_t low, uint64_t rng) {
+    const unsigned hi = (unsigned)(low >> 32);
+    const bool diff = ((hi ^ (unsigned)((low + rng) >> 32)) & 0x0FFFFFFFu) != 0u;
+    return !(diff && rng > kBottom);
+}
+
+// One emission: a small range whose top bits differ from low's is clamped
+// as the reference does; bits 32..59 of low go out; both shift by 28.
+__device__ __forceinline__ void emit(uint64_t& low, uint64_t& rng,
+                                     unsigned* __restrict__ st, int& k) {
+    const unsigned hi = (unsigned)(low >> 32);
+    if (((hi ^ (unsigned)((low + rng) >> 32)) & 0x0FFFFFFFu) != 0u)
+        rng = (0ull - low) & kBottom;
+    st[k++] = hi & 0x0FFFFFFFu;
+    low <<= 28;
+    rng = (rng << 28) & kM60;
+}
+
+// One byte exactly: the update, then up to two emissions.
+__device__ __forceinline__ void step_exact(uint2 e, int sh, uint64_t& low,
+                                           uint64_t& rng, unsigned* __restrict__ st,
+                                           int& k) {
+    const uint64_t r2 = rng >> sh;
+    low += (uint64_t)e.x * r2;
+    rng = ((uint64_t)e.y * r2) & kM60;
+    if (emits(low, rng)) {
+        emit(low, rng, st, k);
+        if (emits(low, rng)) emit(low, rng, st, k);
+    }
+}
+
+// One byte with one renormalization pass, as selects (the word is stored
+// at k whether or not it is emitted). `rare` is set where a second pass
+// could emit: after an emission, only rng < 2^32 or rng >= 2^60 - 2^32
+// can keep the top bits of low and low + rng equal, or rng small.
+__device__ __forceinline__ void step_select(uint2 e, int sh, uint64_t& low,
+                                            uint64_t& rng, unsigned* __restrict__ st,
+                                            int& k, bool& rare) {
+    const uint64_t r2 = rng >> sh;
+    const uint64_t lowp = low + (uint64_t)e.x * r2;
+    const uint64_t rngp = ((uint64_t)e.y * r2) & kM60;
+    const unsigned hi = (unsigned)(lowp >> 32);
+    const bool diff = ((hi ^ (unsigned)((lowp + rngp) >> 32)) & 0x0FFFFFFFu) != 0u;
+    const bool big = rngp > kBottom;
+    // no emission where diff && big; a clamp, then an emission, where
+    // diff && !big; an emission where !diff
+    const uint64_t lows = lowp << 28;
+    const uint64_t rng_diff = big ? rngp : ((0ull - lowp) & kBottom) << 28;
+    rng = diff ? rng_diff : (rngp << 28) & kM60;
+    low = diff && big ? lowp : lows;
+    const bool e1 = !(diff && big);
+    st[k] = hi & 0x0FFFFFFFu;
+    k += (int)e1;
+    rare |= e1 && (unsigned)(rng >> 32) - 1u >= 0x0FFFFFFEu;
+}
+
+constexpr int kEncGroup = 4;
+
+// The chain over one tile of n bytes, in groups of four: each byte one
+// select pass, the group's pairs loaded a group ahead; a group where a
+// second pass could emit (rare on a host table's data) is redone exactly
+// from its starting state. Emitted words go to st. Returns the count.
+__device__ __forceinline__ int encode_tile(const uint2* __restrict__ p, int n,
+                                           int sh, uint64_t& low, uint64_t& rng,
+                                           unsigned* __restrict__ st) {
+    int k = 0;
+    int i = 0;
+    uint2 e[kEncGroup];
+#pragma unroll
+    for (int j = 0; j < kEncGroup; ++j) e[j] = p[j];
+    for (; i + kEncGroup <= n; i += kEncGroup) {
+        uint2 nx[kEncGroup];
+#pragma unroll
+        for (int j = 0; j < kEncGroup; ++j) nx[j] = p[i + kEncGroup + j];
+        const uint64_t low0 = low, rng0 = rng;
+        const int k0 = k;
+        bool rare = false;
+#pragma unroll
+        for (int j = 0; j < kEncGroup; ++j) step_select(e[j], sh, low, rng, st, k, rare);
+        if (rare) {
+            low = low0;
+            rng = rng0;
+            k = k0;
+#pragma unroll
+            for (int j = 0; j < kEncGroup; ++j) step_exact(e[j], sh, low, rng, st, k);
+        }
+#pragma unroll
+        for (int j = 0; j < kEncGroup; ++j) e[j] = nx[j];
+    }
+    for (; i < n; ++i) step_exact(p[i], sh, low, rng, st, k);
+    return k;
+}
+
+// Helpers (or the whole CTA: stride) copy the n words of st to dst.
+__device__ __forceinline__ void flush_words(int* dst, const unsigned* st, int n,
+                                            int h, int stride) {
+    for (int i = h; i < n; i += stride) dst[i] = (int)st[i];
+}
+
+__global__ void __launch_bounds__(kEncThreads)
+range_encode_kernel(const uint8_t* __restrict__ syms, int64_t N,
+                    const int* __restrict__ nvalid,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ shifts,
+                    int* __restrict__ words, int* __restrict__ nwords,
+                    unsigned* __restrict__ lows) {
+    __shared__ unsigned tab[512];
+    __shared__ __align__(16) uint2 pairs[2][kEncTile + 2 * kEncGroup];
+    __shared__ unsigned wst[2][2 * kEncTile];
+    __shared__ int64_t wbase[2];
+    __shared__ int wcount[2];
+    const int64_t row = blockIdx.x;
+    const int tid = threadIdx.x;
+    const uint8_t* s = syms + row * N;
+    int64_t nv = nvalid[row];
+    nv = nv < 0 ? 0 : (nv > N ? N : nv);
+    const int sh = clamp_shift(shifts[row]);
+    int* w = words + row * 2 * N;
+    const int ntiles = (int)((nv + kEncTile - 1) / kEncTile);
+    auto tile_len = [&](int t) {
+        const int64_t r = nv - (int64_t)t * kEncTile;
+        return (int)(r < kEncTile ? r : kEncTile);
+    };
+
+    for (int i = tid; i < 512; i += kEncThreads) tab[i] = (unsigned)tables[row * 512 + i];
+    __syncthreads();
+    if (tid >= 32 && ntiles > 0) stage_pairs(s, N, tile_len(0), tab, pairs[0], tid - 32);
+    __syncthreads();
+
+    // tile t: thread 0 runs the chain on pairs[t & 1] into wst[t & 1]; the
+    // helpers stage tile t + 1 and flush tile t - 1's words
+    uint64_t low = 0, rng = kTop;
+    int64_t k = 0;
+    for (int t = 0; t < ntiles; ++t) {
+        const int b = t & 1;
+        if (tid == 0) {
+            const int c = encode_tile(pairs[b], tile_len(t), sh, low, rng, wst[b]);
+            wbase[b] = k;
+            wcount[b] = c;
+            k += c;
+        } else if (tid >= 32) {
+            const int64_t next = (int64_t)(t + 1) * kEncTile;
+            if (t + 1 < ntiles)
+                stage_pairs(s + next, N - next, tile_len(t + 1), tab, pairs[b ^ 1], tid - 32);
+            if (t > 0)
+                flush_words(w + wbase[b ^ 1], wst[b ^ 1], wcount[b ^ 1], tid - 32,
+                            kEncHelpers);
+        }
+        __syncthreads();
+    }
+    // the last tile's words, then zeros over [nwords, 2N), by the whole CTA
+    int64_t total = 0;
+    if (ntiles > 0) {
+        const int b = (ntiles - 1) & 1;
+        flush_words(w + wbase[b], wst[b], wcount[b], tid, kEncThreads);
+        total = wbase[b] + wcount[b];
+    }
+    const int64_t end = 2 * N;
+    const int64_t head0 = (int64_t)(((16 - ((uintptr_t)(w + total) & 15)) & 15) >> 2);
+    const int64_t head = head0 < end - total ? head0 : end - total;
+    if (tid < head) w[total + tid] = 0;
+    const int64_t a = total + head;
+    const int64_t nvec = (end - a) >> 2;
+    for (int64_t i = tid; i < nvec; i += kEncThreads)
+        ((int4*)(w + a))[i] = make_int4(0, 0, 0, 0);
+    const int64_t tail = a + 4 * nvec + tid;
+    if (tail < end) w[tail] = 0;
+    if (tid == 0) {
+        nwords[row] = (int)k;
+        lows[2 * row] = (unsigned)low;
+        lows[2 * row + 1] = (unsigned)(low >> 32) & 0x0FFFFFFFu;
+    }
 }
 
 constexpr int kDecThreads = 256;
 constexpr int64_t kSlots = 4096;
 constexpr int64_t kStage = 32768;       // symbols staged per segment
 constexpr int64_t kSmemMax = 232448;    // dynamic shared memory of a CTA
-constexpr int64_t kReadsCap = (kSmemMax - kSlots * 8 - 2048 - kStage) / 4;
+// slot table (cumFreq, freq) 8 bytes a slot, slot -> symbol 1 byte a slot,
+// the row's tables 2048 bytes, then the reads and the symbol stage
+constexpr int64_t kTabBytes = kSlots * 9 + 2048;
+constexpr int64_t kReadsCap = (kSmemMax - kTabBytes - kStage) / 4;
 
 // The k-th 28-bit read: bits 60 + 28k .. of the row, zero past nb
 __device__ __forceinline__ unsigned read28(const uint8_t* buf, int64_t nb,
@@ -161,7 +342,7 @@ __host__ __device__ DecLayout dec_layout(int64_t S, int64_t glen) {
     l.kcap = l.kmax + 1 < kReadsCap ? l.kmax + 1 : kReadsCap;
     const int64_t g = (glen + 15) & ~(int64_t)15;
     l.stage = g < 16 ? 16 : (g < kStage ? g : kStage);
-    l.smem = kSlots * 8 + 2048 + 4 * l.kcap + l.stage;
+    l.smem = kTabBytes + 4 * l.kcap + l.stage;
     return l;
 }
 
@@ -176,8 +357,9 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
     extern __shared__ __align__(16) unsigned char smem[];
     const DecLayout l = dec_layout(S, glen);
     uint2* comb = (uint2*)smem;
-    int* tab = (int*)(comb + kSlots);
-    unsigned* reads = (unsigned*)(tab + 512);
+    uint8_t* slot_sym = (uint8_t*)(comb + kSlots);
+    unsigned* tab = (unsigned*)(slot_sym + kSlots);
+    unsigned* reads = tab + 512;
     uint8_t* stage = (uint8_t*)(reads + l.kcap);
 
     const int64_t row = blockIdx.x;
@@ -190,18 +372,17 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
     nv = nv < 0 ? 0 : (nv > glen ? glen : nv);
     uint8_t* o = out + row * glen;
 
-    for (int i = tid; i < 512; i += kDecThreads) tab[i] = tables[row * 512 + i];
+    for (int i = tid; i < 512; i += kDecThreads) tab[i] = (unsigned)tables[row * 512 + i];
 #pragma unroll 4
     for (int64_t k = tid; k < l.kcap; k += kDecThreads) reads[k] = read28(buf, nb, k);
     __syncthreads();
-    // slot -> (symbol | (cumFreq & 0xFFFFFF) << 8, (cumFreq >> 24) | freq):
-    // the bits of the plain version's int64 comb, for any int32 table
+    // slot -> (cumFreq, freq) as u32, the plain version's comb, and slot ->
+    // symbol beside it
     const uint8_t* map = f2s + row * kSlots;
     for (int i = tid; i < kSlots; i += kDecThreads) {
         const int sym = map[i];
-        const int cum = tab[sym], freq = tab[256 + sym];
-        comb[i] = make_uint2((unsigned)sym | (((unsigned)cum & 0xFFFFFFu) << 8),
-                             (unsigned)((cum >> 24) | freq));
+        comb[i] = make_uint2(tab[sym], tab[256 + sym]);
+        slot_sym[i] = (uint8_t)sym;
     }
     __syncthreads();
 
@@ -235,13 +416,17 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
                 const unsigned qe = estimate(code, r2);
                 const unsigned qs = qe < 4095u ? qe : 4095u;
                 uint2 e = comb[qs];
+                uint8_t sym = slot_sym[qs];
                 const unsigned q = correct(qe, code, r2);
-                if (q != qs) e = comb[q];
-                const uint64_t step = (uint64_t)(e.x >> 8) * r2;
+                if (q != qs) {
+                    e = comb[q];
+                    sym = slot_sym[q];
+                }
+                const uint64_t step = (uint64_t)e.x * r2;
                 low = (low + step) & kM60;
                 code = (code - step) & kM60;
-                rng = ((uint64_t)(int64_t)(int)e.y * r2) & kM60;
-                stage[i] = (uint8_t)e.x;
+                rng = ((uint64_t)e.y * r2) & kM60;
+                stage[i] = sym;
                 if (renorm_done(low, rng)) continue;
                 code = ((code << 28) & kM60) | nx0;
                 low = (low << 28) & kM60;
@@ -280,18 +465,15 @@ extern "C" {
 
 // syms (B, N) uint8, nvalid (B,) int32, tables (B, 2, 256) int32 planes
 // cumFreq, freq, shifts (B,) int32 -> words (B, 2N) int32 28-bit values in
-// stream order, nwords (B,) int32, lows (B, 2) u32 limbs (lo, hi).
+// stream order, nwords (B,) int32, lows (B, 2) u32 limbs (lo, hi). One CTA
+// per row.
 int kz_range_encode(const void* syms, int64_t N, const void* nvalid,
                     const void* tables, const void* shifts, int64_t B,
                     void* words, void* nwords, void* lows, void* stream) {
-    if (B > 0) {
-        const int threads = threads_for(B);
-        range_encode_kernel<<<(unsigned)((B + threads - 1) / threads), threads,
-                              0, (cudaStream_t)stream>>>(
+    if (B > 0)
+        range_encode_kernel<<<(unsigned)B, kEncThreads, 0, (cudaStream_t)stream>>>(
             (const uint8_t*)syms, N, (const int*)nvalid, (const int*)tables,
-            (const int*)shifts, B, (int*)words, (int*)nwords,
-            (unsigned*)lows);
-    }
+            (const int*)shifts, (int*)words, (int*)nwords, (unsigned*)lows);
     return (int)cudaGetLastError();
 }
 

@@ -45,6 +45,8 @@ def _pack_lanes_plain(syms, lane_len, table_idx, tables):
     codes = torch.gather(ctab, 1, syms.long() & 0xFF)          # (L, frag)
     pos = torch.arange(frag, device=syms.device)[None, :]
     valid = pos < lane_len.long()[:, None]
+    if bool((valid & (codes < 0)).any()):
+        raise ValueError("pack_lanes: a valid symbol's table entry is negative")
     zero = torch.zeros_like(codes)
     lens = torch.where(valid, codes >> 12, zero)
     vals = torch.where(valid, codes & 0xFFF, zero)
@@ -75,10 +77,13 @@ def pack_lanes(syms: torch.Tensor, lane_len: torch.Tensor,
 
     Returns (words (L, nwords) int32 bit patterns of the big-endian u32
     stream, nbits (L,) int32) with nwords = (frag*12+31)//32 + 2.
-    A table_idx outside [0, C) raises ValueError on the CPU; on the card
-    the kernel reads no table for that lane and gives it nbits -1 and zero
-    words, which the caller reads with the result (no host round trip
-    before the launch).
+    A symbol is read as its low byte. Any non-negative entry is exact:
+    length entry >> 12, code entry & 0xFFF, codes wider than their length
+    included (parts are summed per word, as kanzi_tpu sums them).
+    A table_idx outside [0, C), or a negative entry for a valid symbol,
+    raises ValueError on the CPU; on the card the kernel writes no part
+    for that lane and gives it nbits -1 and zero words, which the caller
+    reads with the result (no host round trip before the launch).
     Replaces kanzi_tpu/ops/huffman.py: pack_lanes.
     """
     route = K.route(syms)

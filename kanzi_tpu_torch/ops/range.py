@@ -28,6 +28,7 @@ _M60 = (1 << 60) - 1
 _TOP = _M60                      # TOP_RANGE
 _BOTTOM = 0xFFFF                 # BOTTOM_RANGE
 _RANGE_MASK = 0x0FFFFFFF00000000
+_M32 = 0xFFFFFFFF
 
 
 class _Consts:
@@ -60,8 +61,9 @@ def _encode_chunks_plain(syms, nvalid, tables, shifts):
     dev = syms.device
     k = _Consts(dev)
     idx = syms.long()
-    cum = torch.gather(tables[:, 0].long(), 1, idx).T.contiguous()   # (N, B)
-    freq = torch.gather(tables[:, 1].long(), 1, idx).T.contiguous()
+    # the table planes are read as u32, as kanzi_tpu reads them
+    cum = torch.gather(tables[:, 0].long() & _M32, 1, idx).T.contiguous()   # (N, B)
+    freq = torch.gather(tables[:, 1].long() & _M32, 1, idx).T.contiguous()
     sh = shifts.long().clamp(0, 63)
     nv = nvalid.long().clamp(0, N)
     low = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -157,26 +159,27 @@ def _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen):
         head = (head << 8) | b[:, j:j + 1]
     code = head >> 4
     nv = nvalid.long().clamp(0, glen)[:, None]
-    # freq slot -> (symbol | cumFreq << 8 | freq << 32), one gather a step
+    # freq slot -> (cumFreq | freq << 32), both read as u32 as kanzi_tpu
+    # reads them: one gather a step; the symbols are gathered at the end
     sym_all = f2s.long()
-    comb = (sym_all | (torch.gather(tables[:, 0].long(), 1, sym_all) << 8)
-            | (torch.gather(tables[:, 1].long(), 1, sym_all) << 32))
+    comb = (torch.gather(tables[:, 0].long() & _M32, 1, sym_all)
+            | (torch.gather(tables[:, 1].long() & _M32, 1, sym_all) << 32))
     sh = shifts.long().clamp(0, 63)[:, None]
     low = torch.zeros(B, 1, dtype=torch.int64, device=dev)
     rng = torch.full((B, 1), _TOP, dtype=torch.int64, device=dev)
     nr = torch.zeros(B, 1, dtype=torch.int64, device=dev)
     every = torch.ones(B, 1, dtype=torch.bool, device=dev)
-    c4095, m24 = torch.tensor(4095, device=dev), torch.tensor(0xFFFFFF, device=dev)
-    out = torch.zeros(B, glen, dtype=torch.int64, device=dev)
+    c4095, m32 = torch.tensor(4095, device=dev), torch.tensor(_M32, device=dev)
+    slots = torch.zeros(B, glen, dtype=torch.int64, device=dev)
     # rows past their nvalid run on; only their read count is held
     for i in range(glen):
         r2 = rng >> sh
         d = (code - low) & k.m60
         q = torch.where(r2 == 0, c4095, torch.minimum(d // r2.clamp(min=1), c4095))
         c = torch.gather(comb, 1, q)
-        out[:, i:i + 1] = c
-        low = (low + ((c >> 8) & m24) * r2) & k.m60
-        rng = ((c >> k.s32) * r2) & k.m60
+        slots[:, i:i + 1] = q
+        low = (low + (c & m32) * r2) & k.m60
+        rng = (((c >> k.s32) & m32) * r2) & k.m60
         active = every
         for _ in range(2):
             emit, low, rng = _renorm(k, low, rng, active)
@@ -186,7 +189,8 @@ def _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen):
             code = torch.where(emit, ((code << k.s28) & k.m60) | r28, code)
             nr = nr + (emit & (i < nv))
             active = emit
-    out = torch.where(torch.arange(glen, device=dev)[None, :] < nv, out & 0xFF, 0)
+    out = torch.gather(sym_all, 1, slots)
+    out = torch.where(torch.arange(glen, device=dev)[None, :] < nv, out, 0)
     err = (nr > kbad) | ((nv > 0) & (nb < 8))
     return out.to(torch.uint8), torch.where(err, -1, nr)[:, 0].to(torch.int32)
 

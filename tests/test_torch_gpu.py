@@ -22,7 +22,8 @@ from kanzi_tpu_torch.ops import ans as ops_ans, block_stats, huffman as ops_huff
 from kanzi_tpu_torch.ops import range as ops_range
 from kanzi_tpu_torch.ops.state import to_port_state
 from specmodel import ans as spec_ans
-from torch_edge_inputs import decode_cases, encode_cases
+from torch_edge_inputs import (decode_cases, encode_cases, pack_cases,
+                              range_encode_cases, range_u32_cases)
 
 pytestmark = pytest.mark.gpu
 
@@ -336,6 +337,56 @@ def test_decode_lanes_kernel_many_lanes(card):
     got, want = _both(_decode_lanes, arrays,
                       ("lanes", "table_idx", "dtables"), card)
     assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("name", list(range_encode_cases()))
+def test_range_encode_kernel_edge_rows(card, name):
+    # nvalid edges, bytes past nvalid, mixed lengths, shifts in and outside
+    # [0, 63], two emissions a byte, a single symbol, random u32 tables
+    syms, nvalid, tables, shifts = range_encode_cases()[name]
+    arrays = {"rng_syms": syms, "nvalid": nvalid, "rng_tables": tables, "shifts": shifts}
+    got, want = _both(ops_range.encode_chunks, arrays,
+                      ("rng_syms", "nvalid", "rng_tables", "shifts"), card)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", list(range_u32_cases()))
+def test_range_kernels_u32_tables(card, name):
+    # K7 and K8 read the table planes as u32, as their plain versions do
+    (syms, nvalid, tables, shifts), dec = range_u32_cases()[name]
+    arrays = {"rng_syms": syms, "nvalid": nvalid, "rng_tables": tables, "shifts": shifts}
+    got, want = _both(ops_range.encode_chunks, arrays,
+                      ("rng_syms", "nvalid", "rng_tables", "shifts"), card)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    bufs, dtables, f2s, dshifts, dnvalid, glen = dec
+    arrays = {"bufs": bufs, "nbytes": np.full(len(bufs), bufs.shape[1], np.int32),
+              "rng_tables": dtables, "f2s": f2s, "shifts": dshifts, "nvalid": dnvalid}
+    got, want = _both(ops_range.decode_chunks, arrays, _RANGE_KEYS, card, glen)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert want[1].max() > 0
+
+
+@pytest.mark.parametrize("name", list(pack_cases()))
+def test_pack_lanes_kernel_edge_inputs(card, name):
+    # frag 4096 / 512 / 37, lane_len edges, symbols above 255, wide codes,
+    # lengths 0 and 13-40, full words; a negative entry flags its lane
+    syms, lane_len, table_idx, tables = pack_cases()[name]
+    arrays = {"syms": syms, "lane_len": lane_len, "table_idx": table_idx,
+              "tables": tables}
+    keys = ("syms", "lane_len", "table_idx", "tables")
+    if name != "negative_entry":
+        got, want = _both(ops_huffman.pack_lanes, arrays, keys, card)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        return
+    gpu = to_port_state(arrays, card)
+    words, nbits = ops_huffman.pack_lanes(*(gpu[k] for k in keys))
+    torch.cuda.synchronize()
+    keep = [0, 1, 3]
+    want = ops_huffman.pack_lanes(*(to_port_state(
+        {**arrays, "syms": syms[keep], "lane_len": lane_len[keep],
+         "table_idx": table_idx[keep]}, "cpu")[k] for k in keys))
+    assert nbits[2].item() == -1 and not words[2].any()
+    assert torch.equal(words[keep].cpu(), want[0]) and torch.equal(nbits[keep].cpu(), want[1])
 
 
 def test_table_index_flag_on_card(card, monkeypatch):

@@ -17,7 +17,7 @@ from kanzi_tpu_torch.entropy.huffman_device import (DeviceHuffmanEngine,
                                                     huffman_encode_device)
 from kanzi_tpu_torch.ops import huffman as ops_huffman
 from kanzi_tpu_torch.ops.state import to_port_state
-from torch_edge_inputs import decode_cases
+from torch_edge_inputs import decode_cases, pack_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "SURVEY.md"), "rb") as _fh:
@@ -137,6 +137,36 @@ def test_decode_lanes_edge_inputs_match_jax(name):
     got = ops_huffman.decode_lanes(st["lanes"], st["table_idx"], st["dtables"], bad)
     assert np.array_equal(got.numpy(), want)
     assert not bad.any()
+
+
+@pytest.mark.parametrize("name", list(pack_cases()))
+def test_pack_lanes_edge_inputs_match_jax(name):
+    # frag 4096 / 512 / 37 (unaligned rows), lane_len edges, int32 symbols
+    # above 255, codes wider than their lengths, lengths 0 and 13-40, full
+    # words; a negative entry for a valid symbol raises
+    syms, lane_len, table_idx, tables = pack_cases()[name]
+    if name == "negative_entry":
+        st = to_port_state({"syms": syms, "lane_len": lane_len,
+                            "table_idx": table_idx, "tables": tables}, "cpu")
+        with pytest.raises(ValueError, match="negative"):
+            ops_huffman.pack_lanes(st["syms"], st["lane_len"], st["table_idx"],
+                                   st["tables"])
+        return
+    if name == "syms_above_255":
+        # the port reads a symbol as its low byte; kanzi_tpu's gather fills
+        # an index past its 256 entries, so it is given the low bytes
+        jsyms = syms & 0xFF
+        want = jax_huffman.pack_lanes(jsyms, lane_len, table_idx, tables)
+        st = to_port_state({"syms": syms, "lane_len": lane_len,
+                            "table_idx": table_idx, "tables": tables}, "cpu")
+        got = ops_huffman.pack_lanes(st["syms"], st["lane_len"], st["table_idx"],
+                                     st["tables"])
+        assert np.array_equal(got[0].numpy().view(np.uint32), np.asarray(want[0]))
+        assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+        return
+    _w, n = _pack_both(syms, lane_len, table_idx, tables)
+    if name == "full_12bit":
+        assert (n.numpy() == 12 * syms.shape[1]).all()
 
 
 def test_to_port_state_dtypes_and_copies():

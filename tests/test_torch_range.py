@@ -20,6 +20,7 @@ from kanzi_tpu_torch.core import ERR_CRC_CHECK, ERR_PROCESS_BLOCK, KanziError
 from kanzi_tpu_torch.entropy import range_device
 from kanzi_tpu_torch.ops import range as ops_range
 from kanzi_tpu_torch.ops.state import to_port_state
+from torch_edge_inputs import range_encode_cases, range_u32_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "SURVEY.md"), "rb") as _fh:
@@ -83,6 +84,56 @@ def test_encode_chunks_match_jax():
     assert np.array_equal(nwords.numpy(), np.asarray(want[1]))
     assert np.array_equal(lows.numpy().view(np.uint32), np.asarray(want[2]))
     assert nwords[-1] == 0 and not lows[-1].any()
+
+
+def _encode_both(syms, nvalid, tables, shifts):
+    """encode_chunks of the port (plain) and of kanzi_tpu on the same rows,
+    as u32 numpy arrays. kanzi_tpu reads a negative shift as a u32 above
+    63; the port clamps it to 0, so kanzi_tpu takes 0 there."""
+    want = jax_range.encode_chunks(syms.astype(np.int32), nvalid, tables,
+                                   np.maximum(shifts, 0).astype(np.uint32))
+    st = to_port_state({"rng_syms": syms, "nvalid": nvalid, "rng_tables": tables,
+                        "shifts": shifts}, "cpu")
+    got = ops_range.encode_chunks(st["rng_syms"], st["nvalid"], st["rng_tables"],
+                                  st["shifts"])
+    return ([g.numpy().view(np.uint32) if g.dtype == torch.int32 else g.numpy()
+             for g in got], [np.asarray(w) for w in want])
+
+
+@pytest.mark.parametrize("name", list(range_encode_cases()))
+def test_encode_chunks_edge_rows_match_jax(name):
+    # nvalid 0 / 1 / N / negative / past N, bytes past nvalid, mixed
+    # lengths, logRange 8/11/12 and shifts outside [0, 63], two emissions
+    # a byte, a single-symbol table, random u32 tables
+    syms, nvalid, tables, shifts = range_encode_cases()[name]
+    got, want = _encode_both(syms, nvalid, tables, shifts)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.astype(np.int64), w.astype(np.int64))
+    nv = np.clip(nvalid, 0, syms.shape[1])
+    if name in ("shifts", "two_emissions"):
+        assert (got[1] == 2 * nv).any()         # a row whose every byte emits twice
+
+
+@pytest.mark.parametrize("name", list(range_u32_cases()))
+def test_u32_tables_match_jax(name):
+    # table planes read as u32, as kanzi_tpu reads them: entries in
+    # [2^24, 2^31) and at or above 2^31, encode and decode
+    (syms, nvalid, tables, shifts), dec = range_u32_cases()[name]
+    got, want = _encode_both(syms, nvalid, tables, shifts)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.astype(np.int64), w.astype(np.int64))
+    assert got[1][0] > 0
+    bufs, dtables, f2s, dshifts, dnvalid, glen = dec
+    want_syms, want_nreads = jax_range.decode_chunks(
+        bufs, dtables, f2s, dshifts.astype(np.uint32), dnvalid, glen=glen)
+    st = to_port_state({"bufs": bufs, "nbytes": np.full(len(bufs), bufs.shape[1], np.int32),
+                        "rng_tables": dtables, "f2s": f2s, "shifts": dshifts,
+                        "nvalid": dnvalid}, "cpu")
+    syms_d, nreads = ops_range.decode_chunks(st["bufs"], st["nbytes"], st["rng_tables"],
+                                             st["f2s"], st["shifts"], st["nvalid"], glen)
+    assert np.array_equal(syms_d.numpy(), np.asarray(want_syms))
+    assert np.array_equal(nreads.numpy(), np.asarray(want_nreads))
+    assert nreads.max() > 0
 
 
 def _chunk_rows(payloads, buf_cap=2 * CHUNK + 8192):

@@ -13,9 +13,12 @@ through their public wrappers in ops/, whose signatures the port keeps; an
 output argument that only one version's wrapper names (decode_lanes' `bad`)
 is passed where the wrapper takes it. The inputs are those of
 chip_smoke.py's kernel phase. Each case is timed old, new, new, old, each
-turn the median of CUDA-event times, and the two versions' outputs must be
+turn the median of CUDA-event times of one call, and again in the same
+order as the mean device time of the call's kernel launch
+(torch.profiler), which leaves out the host's share where the kernel is
+shorter than the wrapper's host work; the two versions' outputs must be
 identical. Prints one JSON line (and writes it to --out, if given): the
-card's name and power limit, and per case the four turns in ms.
+card's name and power limit, and per case the four turns of each, in ms.
 """
 
 from __future__ import annotations
@@ -46,6 +49,25 @@ def old_ops(root: str):
     return lambda mod: importlib.import_module(f"{name}.ops.{mod}")
 
 
+def device_ms(torch, fn, reps: int) -> float | None:
+    """Mean device time of one kernel launch of fn, a call that launches
+    one kernel: the device times torch.profiler records over `reps` calls
+    after one warm-up, divided by the launches it recorded. It leaves out
+    the host's share of the call. None where no device time is recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    launches = sum(e.count for e in events)
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    return total / launches if launches else None
+
+
 def call(fn, args, outs):
     """fn(*args) with the output arguments its signature names, as a tuple."""
     params = inspect.signature(fn).parameters
@@ -55,16 +77,20 @@ def call(fn, args, outs):
 
 def cases(torch, kt, native, raw, cuda):
     """case name -> (ops module, wrapper name, args, output arguments, reps)."""
-    from kanzi_tpu_torch.entropy import ans_device
+    from kanzi_tpu_torch.entropy import ans_device, range_device
     from kanzi_tpu_torch.entropy.huffman_device import DeviceHuffmanEngine
     from kanzi_tpu_torch.ops.state import to_port_state
 
     out = {}
     posts4 = [raw[i] for i in range(4)]
-    _, b = DeviceHuffmanEngine(cuda).lane_batch(posts4)
-    st = to_port_state(dict(zip(("syms", "lane_len", "table_idx", "tables"), b)), cuda)
-    args = (st["syms"], st["lane_len"], st["table_idx"], st["tables"])
-    out[f"K3 {list(args[0].shape)}"] = ("huffman", "pack_lanes", args, {}, 20)
+    engine = DeviceHuffmanEngine(cuda)
+    # K3: four raw blocks' lanes, and the level 3 Writer's launch
+    for posts in (posts4, cs.transform_posts(native, kt, raw[:1], cs.LEVEL3_CHAIN,
+                                             "HUFFMAN")):
+        _, b = engine.lane_batch(posts)
+        st = to_port_state(dict(zip(("syms", "lane_len", "table_idx", "tables"), b)), cuda)
+        args = (st["syms"], st["lane_len"], st["table_idx"], st["tables"])
+        out[f"K3 {list(args[0].shape)}"] = ("huffman", "pack_lanes", args, {}, 20)
 
     lanes_l, tidx_l, dt_l, base = [], [], [], 0
     for post in posts4:
@@ -90,6 +116,20 @@ def cases(torch, kt, native, raw, cuda):
                            cuda)
         args = (st["ans_syms"], st["ngroups"], st["ans_tables"])
         out[f"{label} {list(args[0].shape)}"] = ("ans", "encode_chunks", args, {}, reps)
+
+    # K7: the RANGE Writer's batch (transform LZ, jobs=4: four 4 MiB
+    # blocks); K8: the first chunk of one block's host RANGE payload
+    posts_lz = cs.transform_posts(native, kt, raw[:4], "LZ", "RANGE")
+    st = to_port_state(range_device.DeviceRangeEngine(cuda).encode_batch(posts_lz)[1], cuda)
+    args = (st["rng_syms"], st["nvalid"], st["rng_tables"], st["shifts"])
+    out[f"K7 {list(args[0].shape)}"] = ("range", "encode_chunks", args, {}, 10)
+    payload, _ = native.entropy_encode(4, posts_lz[0], {"bsVersion": 6})
+    _, _, batch = range_device.chunk_batch(np.frombuffer(payload, np.uint8), 0,
+                                           range_device._CHUNK)
+    st = to_port_state(batch, cuda)
+    args = (st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"], st["shifts"],
+            st["nvalid"], range_device._CHUNK)
+    out[f"K8 [1, {range_device._CHUNK}]"] = ("range", "decode_chunks", args, {}, 20)
     return out
 
 
@@ -126,11 +166,15 @@ def main() -> int:
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got_old, got_new))
         cs.check(same, f"{label}: old and new outputs differ")
-        ms = [cs.median_ms(torch, f, reps) for f in (run_old, run_new, run_new, run_old)]
+        turns = (run_old, run_new, run_new, run_old)
+        ms = [cs.median_ms(torch, f, reps) for f in turns]
+        dev = [device_ms(torch, f, reps) for f in turns]
         result["cases"][label] = {"old_ms": [ms[0], ms[3]], "new_ms": [ms[1], ms[2]],
-                                  "identical": same}
+                                  "old_device_ms": [dev[0], dev[3]],
+                                  "new_device_ms": [dev[1], dev[2]], "identical": same}
         print(f"{label}: old {ms[0]:.4f}, new {ms[1]:.4f}, new {ms[2]:.4f}, "
-              f"old {ms[3]:.4f} ms; outputs identical: {same}", flush=True)
+              f"old {ms[3]:.4f} ms a call; device time old {dev[0]}, new {dev[1]}, "
+              f"new {dev[2]}, old {dev[3]} ms; outputs identical: {same}", flush=True)
     line = json.dumps(result)
     if args.out:
         with open(args.out, "w") as fh:
