@@ -7,7 +7,7 @@ Phases, each failing hard (no exception is caught):
 
 1. the card's name and power limit, and the time to build the kernels
    (nvcc, one process per source under kanzi_tpu_torch/csrc/);
-2. kernels: each of the eight kernels against its plain PyTorch version
+2. kernels: each of the eleven kernels against its plain PyTorch version
    on the card, at the shapes of the main path, with its median time from
    CUDA events, its roofline bound and (where one exists) the time of one
    PyTorch library call computing the same function; the rANS kernels'
@@ -16,14 +16,22 @@ Phases, each failing hard (no exception is caught):
    also held and timed at the level 3 Writer's launch, K5 also held on a
    row whose every step emits, K7 and K8 also held on a row of u32 table
    planes, the SM clock, and the RANGE chunk walk's host time per chunk
-   beside the range decode kernel's;
+   beside the range decode kernel's; K9 held on a corpus block and on a
+   period-2 block, K10 at (4, 65536) and K11 at (2, 1024);
 3. the slice: a 64 MiB seeded corpus through compress/decompress at levels
    2, 3 and 5 on the card, and its first 16 MiB through the ANS1 and RANGE
    codecs, byte-identical to the host C++ path, each path read by the
    launch counters;
 4. compress_step on the real blocks and lanes, checked against numpy and
    the integer entropy reference;
-5. a profile of the level 2 device path: the device's busy share
+5. bwt_fpaq: the device BWT and FPAQ entry points on the corpus's 16
+   blocks of 4 MiB: bwt_forward_device (K9) on each and on a period-2
+   block, byte-identical to the host BWT transform; bwt_inverse_device
+   (K10) on the blocks' textbook BWTs, decoding to the blocks;
+   fpaq_encode_device_batch (K11) on the 16 blocks, byte-identical to the
+   host FPAQ encoder; each kernel's time at that shape beside the host
+   C++ time of the same work (K9 also per block, with its rounds);
+6. a profile of the level 2 device path: the device's busy share
    (torch.profiler) and the host functions that take the time (cProfile).
 
 It then prints one JSON line with every kernel's numbers and, last, the
@@ -327,6 +335,223 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
           flush=True)
 
 
+def timed_ms(torch, fn):
+    """(fn(), its device time in ms from CUDA events): one call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def period2_block(n: int) -> np.ndarray:
+    """A block that repeats "ab": about log2(n) doubling rounds."""
+    return np.tile(np.frombuffer(b"ab", np.uint8), n // 2)
+
+
+def padded_block(torch, block: np.ndarray, device):
+    """The (size,) int32 input of prefix_double for one block."""
+    from kanzi_tpu_torch.ops.suffix_sort import _bucket
+    padded = np.zeros(_bucket(len(block)), np.int32)
+    padded[:len(block)] = block
+    return torch.from_numpy(padded).to(device)
+
+
+def prefix_double_torch_sort(torch, padded, n: int):
+    """K9's rounds with one torch.sort(stable=True) of the packed key in
+    place of the hand-written radix sort: the library yardstick, timed
+    here and used nowhere in the port."""
+    size = padded.shape[0]
+    idx = torch.arange(size, device=padded.device)
+    rank = torch.where(idx < n, padded.long(), 256 + idx)
+    b = (size + 256).bit_length()
+    k = 1
+    while True:
+        pos = idx + k
+        r2 = torch.where(pos < n, rank[pos.clamp(max=size - 1)], -1)
+        sk, order = torch.sort((rank << b) | (r2 + 1), stable=True)
+        neq = torch.ones_like(sk)
+        neq[1:] = (sk[1:] != sk[:-1]).long()
+        new = torch.cumsum(neq, 0) - 1
+        rank = torch.empty_like(rank)
+        rank[order] = new
+        k *= 2
+        if not (k < size and int(new[-1].item()) < size - 1):
+            return order
+
+
+def prefix_double_bound(size: int, rounds: int) -> tuple[float, str]:
+    """K9's least time: the padded input read and the order written once;
+    per round a key and a relabel of a few operations and the n log2 n
+    comparisons that a sort of size keys needs."""
+    return bound(8 * size, rounds * size * (size.bit_length() - 1 + 7))
+
+
+def textbook(ops_ss, blocks, device):
+    """(texts, last columns, primary rows) of the textbook BWTs of the
+    blocks with their zero bytes mapped to 1 and one 0 appended. The
+    unique minimum makes the sorted rotations the sorted suffixes, so the
+    suffix order of the mapped block (K9) gives both."""
+    texts, lasts, prims = [], [], []
+    for b in blocks:
+        t = np.concatenate([np.where(b == 0, 1, b), [0]]).astype(np.uint8)
+        sa = np.concatenate([[len(t) - 1], ops_ss.suffix_array_device(t[:-1], device)])
+        texts.append(t)
+        lasts.append(t[(sa - 1) % len(t)])
+        prims.append(int(np.nonzero(sa == 0)[0][0]))
+    return np.stack(texts), np.stack(lasts), np.array(prims, np.int32)
+
+
+def scan_kernels(torch, raw, device) -> dict:
+    """K9, K10 and K11 against their plain versions on the card, each
+    plain call timed: K9 on a corpus block and a period-2 block (with the
+    torch.sort yardstick), K10 at (4, 65536), K11 at (2, 1024)."""
+    from kanzi_tpu_torch.ops import bwt_inverse as ops_bi, fpaq_batch as ops_fb
+    from kanzi_tpu_torch.ops import suffix_sort as ops_ss
+
+    held = {}
+    for label, blk in (("corpus", raw[0]), ("period2", period2_block(len(raw[0])))):
+        padded = padded_block(torch, blk, device)
+        order, rounds = ops_ss.prefix_double(padded, len(blk))
+        (want, want_rounds), plain_ms = timed_ms(
+            torch, lambda: ops_ss._prefix_double_plain(padded, len(blk)))
+        check(torch.equal(order, want) and rounds == want_rounds,
+              f"prefix_double kernel != plain on the {label} block")
+        lib = prefix_double_torch_sort(torch, padded, len(blk))
+        check(torch.equal(lib.to(torch.int32), order), f"torch.sort rounds != K9 ({label})")
+        held[f"prefix_double {label}"] = dict(
+            shape=[padded.shape[0]], rounds=rounds, plain_ms=plain_ms,
+            library_ms=median_ms(torch, lambda: prefix_double_torch_sort(
+                torch, padded, len(blk)), 3))
+
+    n = 65536
+    _, last, prim = textbook(ops_ss, [r[:n - 1] for r in raw[:4]], device)
+    args = [torch.from_numpy(x).to(device) for x in (last, prim)]
+    lf, _ = ops_bi.build_lf(args[0])
+    got = ops_bi.lf_walk(args[0], lf, args[1], n)
+    want, plain_ms = timed_ms(torch, lambda: ops_bi._lf_walk_plain(args[0], lf, args[1], n))
+    check(torch.equal(got, want), "lf_walk kernel != plain")
+    held["lf_walk"] = dict(shape=list(last.shape), plain_ms=plain_ms)
+
+    data = torch.from_numpy(raw[:2, :1024].copy()).to(device)
+    nb = torch.tensor([1024, 700], dtype=torch.int32, device=device)
+    got = ops_fb.encode_blocks(data, nb)
+    want, plain_ms = timed_ms(torch, lambda: ops_fb._encode_blocks_plain(data, nb))
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "fpaq_encode kernel != plain")
+    held["fpaq_encode"] = dict(shape=[2, 1024], plain_ms=plain_ms)
+    for name, h in held.items():
+        print(f"{name}: held against plain at {h['shape']}, plain {h['plain_ms']:.4f} ms"
+              + (f", {h['rounds']} rounds, torch.sort rounds {h['library_ms']:.4f} ms"
+                 if "rounds" in h else ""), flush=True)
+    return held
+
+
+def bwt_fpaq(torch, K, native, raw, device, held, results) -> dict:
+    """The device BWT and FPAQ entry points on the blocks, byte-identical
+    to the host C++ path; then each kernel timed at the path's shapes
+    beside the host C++ time of the same work. Returns the path's launch
+    counts, set to 0 just before it and read just after."""
+    from kanzi_tpu_torch.ops import bwt_inverse as ops_bi, fpaq_batch as ops_fb
+    from kanzi_tpu_torch.ops import suffix_sort as ops_ss
+
+    B, N = raw.shape
+    blocks = list(raw) + [period2_block(N)]
+    texts, last, prim = textbook(ops_ss, raw, device)          # set-up
+    K.reset_counts()
+    payloads = [ops_ss.bwt_forward_device(b, device) for b in blocks]
+    decoded = ops_bi.bwt_inverse_device(last, prim, device)
+    coded = ops_fb.fpaq_encode_device_batch(list(raw), device)
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    for k in ("prefix_double", "lf_walk", "fpaq_encode"):
+        check(counts[k] > 0, f"bwt_fpaq: {k} never launched")
+    check(sum(K.plain_calls.values()) == 0, "bwt_fpaq: a plain version ran")
+
+    host = {"BWT forward (SA-IS)": [], "BWT inverse": [], "FPAQ encode": []}
+    for i, b in enumerate(blocks):
+        t = time.perf_counter()
+        ref, _ = native.transform_forward(1, b, {"blockSize": N}, 2 * N + 64)
+        host["BWT forward (SA-IS)"].append((time.perf_counter() - t) * 1e3)
+        check(payloads[i] == ref, f"block {i}: bwt_forward_device != host BWT")
+        t = time.perf_counter()
+        back = native.transform_inverse(1, ref, {"blockSize": N}, N)
+        host["BWT inverse"].append((time.perf_counter() - t) * 1e3)
+        check(back == b.tobytes(), f"block {i}: host BWT inverse != block")
+    check(np.array_equal(decoded, texts), "bwt_inverse_device != the textbook blocks")
+    for i, b in enumerate(raw):
+        t = time.perf_counter()
+        want = native.entropy_encode(2, b, {"bsVersion": 6})
+        host["FPAQ encode"].append((time.perf_counter() - t) * 1e3)
+        check(coded[i] == want, f"block {i}: fpaq_encode_device_batch != host FPAQ")
+    print(f"bwt_fpaq: {len(blocks)} BWT payloads (16 blocks and a period-2 block), "
+          f"{B} textbook inverses of {last.shape[1]} bytes and {B} FPAQ payloads "
+          f"byte-identical to the host C++ path; launches {counts}", flush=True)
+    for k, v in host.items():
+        print(f"  host C++ {k}: {sum(v)} ms for {len(v)} blocks, per block {v}", flush=True)
+
+    # K9 per block, with its rounds (the first call is the warm-up)
+    per_block, rounds = [], []
+    for b in blocks:
+        padded = padded_block(torch, b, device)
+        rounds.append(ops_ss.prefix_double(padded, len(b))[1])
+        per_block.append(median_ms(torch, lambda: ops_ss.prefix_double(padded, len(b)), 3, 0))
+    print(f"  K9 prefix_double per block: ms {per_block}, rounds {rounds} (the last "
+          f"is the period-2 block); 16 corpus blocks {sum(per_block[:B])} ms", flush=True)
+    h = held["prefix_double corpus"]
+    check(h["rounds"] == rounds[0], "K9 rounds differ between calls")
+    bms, bby = prefix_double_bound(h["shape"][0], rounds[0])
+    results["prefix_double"] = dict(
+        source="kanzi_tpu_torch/csrc/suffix_sort.cu",
+        replaces="kanzi_tpu/ops/suffix_sort.py:40", shape=h["shape"], max_abs_err=0.0,
+        ms=per_block[0], plain_ms=h["plain_ms"], bound_ms=bms, bound_by=bby,
+        library_ms=h["library_ms"], per_block_ms=per_block, rounds=rounds,
+        period2=dict(held["prefix_double period2"], ms=per_block[-1],
+                     bound_ms=prefix_double_bound(h["shape"][0], rounds[-1])[0]))
+
+    # K10 on the 16 textbook BWTs, and build_lf on the card apart
+    last_t = torch.from_numpy(last).to(device)
+    prim_t = torch.from_numpy(prim).to(device)
+    lf_ms = median_ms(torch, lambda: ops_bi.build_lf(last_t), 3)
+    lf, _ = ops_bi.build_lf(last_t)
+    n = last.shape[1]
+    walk_ms = median_ms(torch, lambda: ops_bi.lf_walk(last_t, lf, prim_t, n), 2)
+    bms, bby = bound(5 * B * n + 4 * B + B * n, B * n)
+    results["lf_walk"] = dict(
+        source="kanzi_tpu_torch/csrc/bwt_inverse.cu",
+        replaces="kanzi_tpu/ops/bwt_inverse.py:48", shape=[B, n], max_abs_err=0.0,
+        ms=walk_ms, plain_ms=held["lf_walk"]["plain_ms"], held_on=held["lf_walk"]["shape"],
+        bound_ms=bms, bound_by=bby, library_ms=None, build_lf_ms=lf_ms,
+        ns_per_step=walk_ms * 1e6 / n)
+    del lf, last_t
+    # K11 on the 16 blocks
+    data = torch.from_numpy(raw.copy()).to(device)
+    nb = torch.full((B,), N, dtype=torch.int32, device=device)
+    fpaq_ms = median_ms(torch, lambda: ops_fb.encode_blocks(data, nb), 2)
+    bms, bby = bound(B * N + 4 * B * N + 24 * B, 12 * 8 * B * N)
+    results["fpaq_encode"] = dict(
+        source="kanzi_tpu_torch/csrc/fpaq_batch.cu",
+        replaces="kanzi_tpu/ops/fpaq_batch.py:82", shape=[B, N], max_abs_err=0.0,
+        ms=fpaq_ms, plain_ms=held["fpaq_encode"]["plain_ms"],
+        held_on=held["fpaq_encode"]["shape"], bound_ms=bms, bound_by=bby,
+        library_ms=None, ns_per_step=fpaq_ms * 1e6 / N)
+    for name in ("prefix_double", "lf_walk", "fpaq_encode"):
+        r = results[name]
+        print(f"{name}: shape {r['shape']} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms (at {r.get('held_on', r['shape'])}), bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), library {r['library_ms']}", flush=True)
+    p2 = results["prefix_double"]["period2"]
+    print(f"  prefix_double on the period-2 block: {p2['ms']:.4f} ms, {p2['rounds']} rounds, "
+          f"bound {p2['bound_ms']:.6f} ms, torch.sort rounds {p2['library_ms']:.4f} ms, "
+          f"plain {p2['plain_ms']:.4f} ms", flush=True)
+    print(f"  lf_walk: {results['lf_walk']['ns_per_step']} ns per step; build_lf on the "
+          f"card {lf_ms:.4f} ms", flush=True)
+    print(f"  fpaq_encode: {results['fpaq_encode']['ns_per_step']} ns per byte of a row",
+          flush=True)
+    return counts
+
+
 def run_path(torch, kt, K, label, data, reps, kw, kernels) -> dict:
     """One slice path: `reps` runs of the device and the host C++ paths in
     turns, byte-identical streams decoded to the input. The launch counts
@@ -558,6 +783,7 @@ def main() -> int:
             torch, lambda: ops_huffman.decode_lanes(*dargs4, dbad), 10)))
     del s_p
     ans_range_kernels(torch, kt, native, raw, cuda, results)
+    held = scan_kernels(torch, raw, cuda)
     for name, r in results.items():
         print(f"{name}: shape {r['shape']} kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
@@ -648,7 +874,14 @@ def main() -> int:
 
     phase_s["compress_step"] = time.perf_counter() - t_phase
 
-    # -- 5. where the time of the level 2 device path goes ----------------
+    # -- 5. the device BWT and FPAQ entry points ---------------------------
+    print("== bwt_fpaq", flush=True)
+    t_phase = time.perf_counter()
+    for k, v in bwt_fpaq(torch, K, native, raw, cuda, held, results).items():
+        main_launches[k] += v
+    phase_s["bwt_fpaq"] = time.perf_counter() - t_phase
+
+    # -- 6. where the time of the level 2 device path goes ----------------
     print("== profile", flush=True)
     t_phase = time.perf_counter()
     profile_level2(torch, kt, corpus)

@@ -57,13 +57,25 @@ _API = {
         "kz_range_encode": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
         "kz_range_decode": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     },
+    "suffix_sort.cu": {
+        "kz_prefix_double": [_P, _I, _I, _P, _P, _P, _I, _P],
+        "kz_prefix_double_scratch": [_I],
+    },
+    "bwt_inverse.cu": {
+        "kz_lf_walk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    },
+    "fpaq_batch.cu": {
+        "kz_fpaq_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
+    },
 }
 
 # functions that return a value, not cudaGetLastError()
-_RESTYPE = {"kz_ans_decode_scratch": ctypes.c_int64}
+_RESTYPE = {"kz_ans_decode_scratch": ctypes.c_int64,
+            "kz_prefix_double_scratch": ctypes.c_int64}
 
 KERNELS = ("histograms_u8", "entropy1024", "pack_lanes", "decode_lanes",
-           "ans_encode", "ans_decode", "range_encode", "range_decode")
+           "ans_encode", "ans_decode", "range_encode", "range_decode",
+           "prefix_double", "lf_walk", "fpaq_encode")
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
 
@@ -92,6 +104,16 @@ def resolve_device(device) -> torch.device | None:
             "for the host C++ path")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device: {device!r}")
+    return dev
+
+
+def resolve_scan_device(device) -> torch.device:
+    """resolve_device for the device scans (BWT, FPAQ), which have no host
+    route: None raises ValueError."""
+    dev = resolve_device(device)
+    if dev is None:
+        raise ValueError("the device scans have no host route: pass device='cuda' "
+                         "or device='cpu'")
     return dev
 
 

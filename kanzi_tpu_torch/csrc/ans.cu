@@ -39,8 +39,13 @@
 // - one CTA per row; thread 0 walks the chain, the other threads build the
 //   row's table, stage its stream and zero the output past ngroups;
 // - one 8-byte entry per freq slot, (symbol | freq << 8, slot - cumFreq),
-//   the plain version's `comb`: one dependent load per state where there
-//   were two (map, then freq and cumFreq);
+//   both planes read as u32 as kanzi_tpu reads them: one dependent load
+//   per state where there were two (map, then freq and cumFreq). That
+//   holds freq whole below 2^24, as in every host table; a row with a freq
+//   at or above it is wide: its entries hold (freq, slot - cumFreq) and the
+//   walk loads the slot's symbol from the slot -> symbol map beside each
+//   (on an H100 the extra load made every row 12-19 % slower, so a narrow
+//   row does without it);
 // - an order-0 row whose 2^lr entries fit (lr <= 14) keeps its table and
 //   its byte stream in shared memory; an order-1 row (256 * 2^lr entries)
 //   and a larger order-0 row read a table that a grid-wide pass, launched
@@ -323,8 +328,9 @@ int launch_encode(const void* syms, const void* ngroups, const void* tables,
     return (int)cudaGetLastError();
 }
 
-// order-0 rows in shared memory: 2^14 entries of 8 bytes (lr <= 14) and a
-// byte stream of up to 40 KiB (a chunk's is at most 2 * 16384 + 256)
+// order-0 rows in shared memory: 2^14 entries of 8 bytes and their 2^14
+// symbols (lr <= 14) and a byte stream of up to 40 KiB (a chunk's is at
+// most 2 * 16384 + 256)
 constexpr int64_t kSmemEntries = 1 << 14;
 constexpr int64_t kStreamCap = 40960;
 constexpr int kDecThreads = 256;
@@ -333,12 +339,16 @@ __device__ __forceinline__ bool bad_lr(int lr, int order, int64_t F) {
     return lr < 8 || lr > 16 || ((int64_t)(order ? 256 : 1) << lr) > F;
 }
 
-// One slot's entry: x = symbol | (freq & 0x1FFFF) << 8, y = slot - (cumFreq
-// | freq >> 17), the bits the plain version's comb gives (exact for any
-// table, not only the host's, whose freq and cumFreq are below 2^17)
-__device__ __forceinline__ uint2 dec_entry(unsigned sym, unsigned slot,
+// A freq at or above 2^24 makes its row wide
+constexpr unsigned kNarrowFreq = 1u << 24;
+
+// One slot's entry, both planes read as u32 as kanzi_tpu reads them:
+// y = slot - cumFreq mod 2^32; x = symbol | freq << 8 in a narrow row
+// (every freq below 2^24, as every host table), x = freq in a wide row,
+// whose symbols are read beside the entries from the slot -> symbol map
+__device__ __forceinline__ uint2 dec_entry(bool wide, unsigned sym, unsigned slot,
                                            unsigned freq, unsigned cum) {
-    return make_uint2(sym | ((freq & 0x1FFFFu) << 8), slot - (cum | (freq >> 17)));
+    return make_uint2(wide ? freq : sym | (freq << 8), slot - cum);
 }
 
 // The 8 stream bytes at cursor n, big-endian (byte n on top), 0 past nb.
@@ -369,10 +379,11 @@ __device__ __forceinline__ uint64_t window8(const uint8_t* buf, int64_t n,
 
 // The chain of one row: ng groups, states 3, 2, 1, 0 sharing the cursor.
 // Returns the bytes consumed (> nb where a read passed the stream's end).
-template <int kOrder, bool kShared>
-__device__ __forceinline__ int64_t walk(const uint2* tab, const uint8_t* buf,
-                                        int64_t nb, const unsigned* st0,
-                                        int lr, int64_t ng, unsigned* o) {
+template <int kOrder, bool kShared, bool kWide>
+__device__ __forceinline__ int64_t walk(const uint2* tab, const uint8_t* sym,
+                                        const uint8_t* buf, int64_t nb,
+                                        const unsigned* st0, int lr, int64_t ng,
+                                        unsigned* o) {
     unsigned st[4], prv[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int j = 0; j < 4; ++j) st[j] = st0[j];
@@ -380,24 +391,26 @@ __device__ __forceinline__ int64_t walk(const uint2* tab, const uint8_t* buf,
     int64_t n = 0;
     for (int64_t g = 0; g < ng; ++g) {
         uint2 e[4];
+        unsigned sy[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const unsigned slot = st[j] & mask;
-            const uint2* p = tab + (kOrder ? (prv[j] << lr) + slot : slot);
-            e[j] = kShared ? *p : __ldg(p);
+            const unsigned i = kOrder ? (prv[j] << lr) + slot : slot;
+            e[j] = kShared ? tab[i] : __ldg(tab + i);
+            if (kWide) sy[j] = kShared ? sym[i] : __ldg(sym + i);
         }
         uint64_t win = window8<kShared>(buf, n, nb);
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
             const int j = 3 - jj;
-            unsigned y = (e[j].x >> 8) * (st[j] >> lr) + e[j].y;
+            unsigned y = (kWide ? e[j].x : e[j].x >> 8) * (st[j] >> lr) + e[j].y;
             if (y < kAnsTop) {
                 y = (y << 16) | (unsigned)(win >> 48);
                 win <<= 16;
                 n += 2;
             }
             st[j] = y;
-            prv[j] = e[j].x & 0xFFu;
+            prv[j] = kWide ? sy[j] : e[j].x & 0xFFu;
         }
         o[g] = prv[0] | (prv[1] << 8) | (prv[2] << 16) | (prv[3] << 24);
     }
@@ -408,15 +421,28 @@ __device__ __forceinline__ bool in_smem(int order, int lr, int64_t stream_smem) 
     return order == 0 && stream_smem > 0 && ((int64_t)1 << lr) <= kSmemEntries;
 }
 
+// Whether each row's freq plane holds a freq at or above 2^24: one CTA of
+// kDecThreads a row, for the rows that decode from scratch tables
+__global__ void ans_wide_kernel(const unsigned* __restrict__ dtabs, int64_t T,
+                                int* __restrict__ wide) {
+    const unsigned* freq = dtabs + (int64_t)blockIdx.x * 2 * T;
+    int any = 0;
+    for (int64_t i = threadIdx.x; i < T; i += blockDim.x) any |= __ldg(freq + i) >= kNarrowFreq;
+    any = __syncthreads_or(any);
+    if (threadIdx.x == 0) wide[blockIdx.x] = any;
+}
+
 // The grid-wide pass: the tables of the rows that do not decode from
 // shared memory, into scratch (B, F) entries. Grid (x: rows, y: slots).
 __global__ void ans_table_kernel(const uint8_t* __restrict__ f2s, int64_t F,
                                  const unsigned* __restrict__ dtabs, int64_t T,
                                  const int* __restrict__ lrs, int order,
-                                 int64_t stream_smem, uint2* __restrict__ scratch) {
+                                 int64_t stream_smem, const int* __restrict__ wides,
+                                 uint2* __restrict__ scratch) {
     const int64_t row = blockIdx.x;
     const int lr = lrs[row];
     if (bad_lr(lr, order, F) || in_smem(order, lr, stream_smem)) return;
+    const bool wide = wides[row] != 0;
     const int64_t n = (int64_t)(order ? 256 : 1) << lr;
     const uint8_t* map = f2s + row * F;
     const unsigned* freq = dtabs + row * 2 * T;
@@ -427,7 +453,7 @@ __global__ void ans_table_kernel(const uint8_t* __restrict__ f2s, int64_t F,
          i += (int64_t)gridDim.y * blockDim.x) {
         const unsigned sym = map[i];
         const unsigned ti = order ? (((unsigned)(i >> lr)) << 8) + sym : sym;
-        t[i] = dec_entry(sym, (unsigned)i & mask, __ldg(freq + ti), __ldg(cum + ti));
+        t[i] = dec_entry(wide, sym, (unsigned)i & mask, __ldg(freq + ti), __ldg(cum + ti));
     }
 }
 
@@ -440,7 +466,8 @@ ans_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
                   const int* __restrict__ ngroups,
                   const int* __restrict__ lrs, int order, int64_t G,
                   int64_t stream_smem, const uint2* __restrict__ scratch,
-                  unsigned* __restrict__ out, int* __restrict__ nread) {
+                  const int* __restrict__ wides, unsigned* __restrict__ out,
+                  int* __restrict__ nread) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int64_t row = blockIdx.x;
     const int tid = threadIdx.x;
@@ -456,36 +483,47 @@ ans_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
     const unsigned* st0 = states0 + row * 4;
 
     if (!bad && in_smem(order, lr, stream_smem)) {
+        const int64_t entries = F < kSmemEntries ? F : kSmemEntries;
         uint2* tab = (uint2*)smem;
-        unsigned* sfreq = (unsigned*)(tab + (F < kSmemEntries ? F : kSmemEntries));
+        unsigned* sfreq = (unsigned*)(tab + entries);
         unsigned* scum = sfreq + 256;
         uint8_t* sbuf = (uint8_t*)(scum + 256);
+        uint8_t* ssym = sbuf + stream_smem;
         const unsigned* freq = dtabs + row * 2 * T;
+        int w = 0;
         for (int i = tid; i < 256; i += kDecThreads) {
             sfreq[i] = __ldg(freq + i);
             scum[i] = __ldg(freq + T + i);
+            w |= sfreq[i] >= kNarrowFreq;
         }
         // the stream, zero past nb (window8 reads up to 12 bytes past n)
 #pragma unroll 8
         for (int64_t i = tid; i < stream_smem; i += kDecThreads)
             sbuf[i] = i < nb ? __ldg(buf + i) : 0;
-        __syncthreads();
+        const bool wide = __syncthreads_or(w);
         const uint8_t* map = f2s + row * F;
         for (int i = tid; i < (1 << lr); i += kDecThreads) {
             const unsigned sym = __ldg(map + i);
-            tab[i] = dec_entry(sym, (unsigned)i, sfreq[sym], scum[sym]);
+            if (wide) ssym[i] = (uint8_t)sym;
+            tab[i] = dec_entry(wide, sym, (unsigned)i, sfreq[sym], scum[sym]);
         }
         __syncthreads();
         if (tid == 0) {
-            const int64_t n = walk<0, true>(tab, sbuf, nb, st0, lr, ng, o);
+            const int64_t n = wide ? walk<0, true, true>(tab, ssym, sbuf, nb, st0, lr, ng, o)
+                                   : walk<0, true, false>(tab, ssym, sbuf, nb, st0, lr, ng, o);
             nread[row] = n > nb ? -1 : (int)n;
         }
     } else if (tid == 0) {
         int64_t n = 0;
         if (!bad) {
             const uint2* tab = scratch + row * F;
-            n = order ? walk<1, false>(tab, buf, nb, st0, lr, ng, o)
-                      : walk<0, false>(tab, buf, nb, st0, lr, ng, o);
+            const uint8_t* sym = f2s + row * F;
+            if (wides[row])
+                n = order ? walk<1, false, true>(tab, sym, buf, nb, st0, lr, ng, o)
+                          : walk<0, false, true>(tab, sym, buf, nb, st0, lr, ng, o);
+            else
+                n = order ? walk<1, false, false>(tab, sym, buf, nb, st0, lr, ng, o)
+                          : walk<0, false, false>(tab, sym, buf, nb, st0, lr, ng, o);
         }
         nread[row] = (bad || n > nb) ? -1 : (int)n;
     }
@@ -498,15 +536,16 @@ ans_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
 struct DecLayout {
     int64_t stream_smem;   // bytes of the staged stream, 0: no row in smem
     int64_t smem;          // dynamic shared memory of the launch
-    int64_t scratch;       // bytes of scratch tables (B, F) the call needs
+    int64_t scratch;       // bytes of scratch the call needs: tables (B, F)
+                           // and a wide flag per row
 };
 
 DecLayout dec_layout(int64_t S, int64_t F, int64_t order, int64_t B) {
     DecLayout l;
     l.stream_smem = (order == 0 && S <= kStreamCap) ? ((S + 3) & ~(int64_t)3) + 16 : 0;
     const int64_t entries = F < kSmemEntries ? F : kSmemEntries;
-    l.smem = l.stream_smem ? entries * 8 + 2 * 256 * 4 + l.stream_smem : 0;
-    l.scratch = (order == 1 || F > kSmemEntries || !l.stream_smem) ? B * F * 8 : 0;
+    l.smem = l.stream_smem ? entries * 9 + 2 * 256 * 4 + l.stream_smem : 0;
+    l.scratch = (order == 1 || F > kSmemEntries || !l.stream_smem) ? B * F * 8 + B * 4 : 0;
     return l;
 }
 
@@ -537,8 +576,9 @@ int kz_ans_encode_u16(const void* syms, const void* ngroups, const void* tables,
 // uint8, dtabs (B, 2, T) int32 planes freq, cumFreq (T = 256 or 65536),
 // ngroups (B,) int32, lrs (B,) int32, scratch of scratch_bytes (at least
 // kz_ans_decode_scratch's) -> out (B, G, 4) uint8, nread (B,) int32 (-1: a
-// read past nbytes, or a logRange the map cannot hold). Two launches: the
-// scratch tables, then one CTA per row.
+// read past nbytes, or a logRange the map cannot hold). Where rows read
+// scratch tables, two launches build them first (each row's wide flag, then
+// the tables); then one CTA per row.
 int kz_ans_decode(const void* bufs, int64_t S, const void* nbytes,
                   const void* states0, const void* f2s, int64_t F,
                   const void* dtabs, int64_t T, const void* ngroups,
@@ -551,13 +591,16 @@ int kz_ans_decode(const void* bufs, int64_t S, const void* nbytes,
     cudaError_t rc = cudaFuncSetAttribute(
         ans_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
     if (rc != cudaSuccess) return (int)rc;
+    int* wides = l.scratch ? (int*)((char*)scratch + B * F * 8) : nullptr;
     if (l.scratch) {
+        ans_wide_kernel<<<(unsigned)B, kDecThreads, 0, (cudaStream_t)stream>>>(
+            (const unsigned*)dtabs, T, wides);
         const int64_t per_row = (int64_t)(order ? 256 : 1) << 16;
         const int64_t need = F < per_row ? F : per_row;
         const unsigned gy = (unsigned)((need + 255) / 256 < 1024 ? (need + 255) / 256 : 1024);
         ans_table_kernel<<<dim3((unsigned)B, gy), 256, 0, (cudaStream_t)stream>>>(
             (const uint8_t*)f2s, F, (const unsigned*)dtabs, T, (const int*)lrs,
-            (int)order, l.stream_smem, (uint2*)scratch);
+            (int)order, l.stream_smem, wides, (uint2*)scratch);
         rc = cudaGetLastError();
         if (rc != cudaSuccess) return (int)rc;
     }
@@ -565,7 +608,7 @@ int kz_ans_decode(const void* bufs, int64_t S, const void* nbytes,
                         (cudaStream_t)stream>>>(
         (const uint8_t*)bufs, S, (const int*)nbytes, (const unsigned*)states0,
         (const uint8_t*)f2s, F, (const unsigned*)dtabs, T, (const int*)ngroups,
-        (const int*)lrs, (int)order, G, l.stream_smem, (const uint2*)scratch,
+        (const int*)lrs, (int)order, G, l.stream_smem, (const uint2*)scratch, wides,
         (unsigned*)out, (int*)nread);
     return (int)cudaGetLastError();
 }

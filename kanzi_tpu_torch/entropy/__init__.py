@@ -47,6 +47,14 @@ def get_name(etype: int) -> str:
     return _NAME_BY_ID[etype]
 
 
+def decodes_on_device(etype: int, ctx: dict) -> bool:
+    """Whether `decode` runs on ctx["device"]: a device is set, `etype` has
+    a device engine, and the stream's bitstream version is 6 or above."""
+    return (ctx.get("device") is not None
+            and etype in (HUFFMAN_TYPE, ANS0_TYPE, ANS1_TYPE, RANGE_TYPE)
+            and int(ctx.get("bsVersion", 6)) >= 6)
+
+
 def device_engine(etype: int, device):
     """The device entropy engine of `etype` on `device` (HUFFMAN, ANS0,
     ANS1, RANGE), or None for the types that run on the host C++ engine on
@@ -100,8 +108,8 @@ def decode(etype: int, payload: bytes, out_len: int, ctx: dict) -> bytes:
         if len(payload) < out_len:
             raise ValueError("Not enough data in entropy payload")
         return payload[:out_len]
-    device = ctx.get("device")
-    if device is not None and int(ctx.get("bsVersion", 6)) >= 6:
+    if decodes_on_device(etype, ctx):
+        device = ctx["device"]
         # device entropy decode (byte-identical to the host path); a payload
         # the device path rejects raises, it is never retried on the host
         if etype == HUFFMAN_TYPE:

@@ -892,6 +892,16 @@ class Reader:
             new[:self._outbuf_len] = self._outbuf[:self._outbuf_len]
             self._outbuf = new
 
+    def _native_path(self) -> bool:
+        """The fully native decode, `jobs` frames at a time: no listener,
+        and no device work. A device decode routes through the Python
+        payload path (the device entropy engines live there); a stream
+        whose entropy type has no device engine, or whose bitstream version
+        is below 6, never touches the device and decodes natively, as
+        kanzi_tpu's default Reader decodes it."""
+        return (self._use_native and not self.listeners
+                and not entropy_mod.decodes_on_device(self.entropy_type, self.ctx))
+
     def _read_next_block(self) -> bool:
         """Read+decode the next block into the output buffer.
         Returns False at end of stream."""
@@ -917,11 +927,8 @@ class Reader:
 
         if self._fast is None:
             # freeze the path on the first block so output ordering is
-            # consistent even if listeners are mutated mid-stream; a device
-            # decode routes through the Python payload path (the device
-            # entropy engine lives there)
-            self._fast = (self._use_native and not self.listeners
-                          and self.device is None)
+            # consistent even if listeners are mutated mid-stream
+            self._fast = self._native_path()
         if self._fast:
             # fully-native path: decode straight from the stream buffer into
             # the (single) output buffer — zero Python-side byte handling
@@ -1034,8 +1041,7 @@ class Reader:
         if not self._initialized:
             self._read_header()
         if self._fast is None:
-            self._fast = (self._use_native and not self.listeners
-                          and self.device is None)
+            self._fast = self._native_path()
         use_batch = (self._fast and self._pool is not None and self.jobs > 1)
         while not self._eos and (
                 n < 0 or self._available() < n):

@@ -124,23 +124,22 @@ def _decode_chunks_plain(bufs, nbytes, states0, f2s, dtabs, ngroups, lr,
     T = dtabs.shape[2]
     dev = bufs.device
     t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)  # noqa: E731
-    m32, top, s8, s16, s25, m8, m17 = (t(_M32), t(ANS_TOP), t(8), t(16), t(25),
-                                      t(0xFF), t(0x1FFFF))
+    m32, top, s16, s32 = t(_M32), t(ANS_TOP), t(16), t(32)
     lr = lr.long()
     bad = (lr < 8) | (lr > 16) | (((256 if order else 1) << lr.clamp(0, 16)) > F)
     lr = torch.where(bad, 8, lr)[:, None]                   # (B, 1)
     mask = torch.where(bad[:, None], 0, (1 << lr) - 1)      # bad rows: slot 0
     ng = torch.where(bad, 0, ngroups.long().clamp(0, glen))
     nb = nbytes.long().clamp(0, S)[:, None]
-    # freq-slot -> (symbol | freq << 8 | cumFreq << 25), one gather a step
-    # (the host's tables hold freq and cumFreq below 2^16)
+    # freq-slot -> freq | cumFreq << 32, both read as u32 as kanzi_tpu
+    # reads them (cumFreq's top bit lands in the sign bit), and the symbol
     slots = torch.arange(F, device=dev)[None, :]
     sym_all = f2s.long()
     ti = ((slots >> lr) << 8) + sym_all if order else sym_all
     ti = ti.clamp(max=T - 1)
     freq = torch.gather(dtabs[:, 0].long() & _M32, 1, ti)
     cum = torch.gather(dtabs[:, 1].long() & _M32, 1, ti)
-    comb = sym_all | (freq << 8) | (cum << 25)
+    fc = freq | (cum << 32)
     # the byte pair at every cursor position a chunk can reach, zero past
     # the row's bytes
     width = max(S, 8 * glen) + 2
@@ -159,12 +158,12 @@ def _decode_chunks_plain(bufs, nbytes, states0, f2s, dtabs, ngroups, lr,
             x = st[j]
             slot = x & mask
             idx = ((prv[j] << lr) + slot).clamp(max=F - 1) if order else slot
-            c = torch.gather(comb, 1, idx)
-            y = (((c >> s8) & m17) * (x >> lr) + slot - (c >> s25)) & m32
+            c = torch.gather(fc, 1, idx)
+            y = ((c & m32) * (x >> lr) + slot - ((c >> s32) & m32)) & m32
             flag = y < top
             st[j] = torch.where(flag, ((y << s16) | torch.gather(pair, 1, n)) & m32, y)
             n = n + 2 * (flag & v)
-            prv[j] = c & m8
+            prv[j] = torch.gather(sym_all, 1, idx)
             out[:, g, j:j + 1] = prv[j]
     out = torch.where((torch.arange(glen, device=dev)[None, :] < ng[:, None])[:, :, None],
                       out, 0)

@@ -21,7 +21,7 @@ from kanzi_tpu_torch.entropy import ans_device
 from kanzi_tpu_torch.ops import ans as ops_ans
 from kanzi_tpu_torch.ops.state import to_port_state
 from specmodel import ans as spec_ans
-from torch_edge_inputs import encode_cases
+from torch_edge_inputs import ans_u32_cases, encode_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "SURVEY.md"), "rb") as _fh:
@@ -154,6 +154,20 @@ def test_decode_chunks_error_flag():
     assert bad[0] == -1 and bad[1] == -1
     assert torch.equal(bad[2:], nread[2:])
     assert torch.equal(bad_syms[2:], syms[2:]) and not bad_syms[1].any()
+
+
+@pytest.mark.parametrize("name", list(ans_u32_cases()))
+def test_decode_chunks_u32_tables_match_jax(name):
+    # freq and cumFreq are read as u32, as kanzi_tpu reads them: no bit of
+    # a freq at or above 2^17 is dropped
+    arrays, order = ans_u32_cases()[name]
+    glen = int(arrays["ngroups"].max())
+    want_syms, want_nread = jax_ans.decode_chunks(
+        arrays["bufs"], arrays["states0"], arrays["f2s"], arrays["dtabs"],
+        arrays["ngroups"], order=order, lr=12, glen=glen)
+    syms, nread = _decode_port(arrays, order, glen)
+    assert np.array_equal(syms.numpy(), np.asarray(want_syms))
+    assert np.array_equal(nread.numpy(), np.asarray(want_nread))
 
 
 def _jax_engine_encode(data, order):

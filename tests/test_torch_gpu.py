@@ -19,10 +19,11 @@ from kanzi_tpu_torch.entropy import ans_device, range_device
 from kanzi_tpu_torch.entropy.huffman_device import (huffman_decode_device,
                                                     huffman_encode_device)
 from kanzi_tpu_torch.ops import ans as ops_ans, block_stats, huffman as ops_huffman
-from kanzi_tpu_torch.ops import range as ops_range
+from kanzi_tpu_torch.ops import bwt_inverse as ops_bi, fpaq_batch as ops_fb
+from kanzi_tpu_torch.ops import range as ops_range, suffix_sort as ops_ss
 from kanzi_tpu_torch.ops.state import to_port_state
 from specmodel import ans as spec_ans
-from torch_edge_inputs import (decode_cases, encode_cases, pack_cases,
+from torch_edge_inputs import (ans_u32_cases, decode_cases, encode_cases, pack_cases,
                               range_encode_cases, range_u32_cases)
 
 pytestmark = pytest.mark.gpu
@@ -435,3 +436,125 @@ def test_table_index_flag_on_card(card, monkeypatch):
                         lambda *a: (lambda r: (r[0][:0],) + tuple(r[1:]))(enc_prepare(*a)))
     with pytest.raises(KanziError, match="table index"):
         huffman_encode_device(data, card)
+
+
+@pytest.mark.parametrize("name", list(ans_u32_cases()))
+def test_ans_decode_kernel_u32_tables(card, name):
+    # K6 reads freq and cumFreq as u32, as the plain version does
+    arrays, order = ans_u32_cases()[name]
+    _hold_ans_decode(arrays, order, card)
+
+
+def _suffix_inputs():
+    """name -> (padded (size,) int32, n_true)."""
+    rng = np.random.default_rng(21)
+    text = np.frombuffer(_text(1 << 20), np.uint8)
+    mixed = np.concatenate([text, rng.integers(0, 256, 1 << 19, dtype=np.uint8),
+                            np.zeros(1 << 18, np.uint8)])
+    cases = {"pads_700_of_1024": ((rng.integers(0, 3, 1024)), 700),
+             "all_pads": (rng.integers(0, 256, 1024), 0),
+             "random_5000": (rng.integers(0, 256, 5000), 5000),
+             "period2_65536": (np.tile([7, 9], 32768), 65536),
+             "const_20000": (np.full(20000, 255), 20000),
+             "text_random_zeros": (mixed, len(mixed))}
+    out = {}
+    for name, (sym, n) in cases.items():
+        padded = np.zeros(ops_ss._bucket(max(n, len(sym))), np.int32)
+        padded[:len(sym)] = sym
+        out[name] = (padded, n)
+    return out
+
+
+@pytest.mark.parametrize("name", list(_suffix_inputs()))
+def test_prefix_double_kernel_matches_plain(card, name):
+    padded, n = _suffix_inputs()[name]
+    _kernels.reset_counts()
+    order, rounds = ops_ss.prefix_double(torch.from_numpy(padded).to(card), n)
+    torch.cuda.synchronize()
+    assert _kernels.launches["prefix_double"] == 1
+    want, want_rounds = ops_ss.prefix_double(torch.from_numpy(padded), n)
+    assert torch.equal(order.cpu(), want) and rounds == want_rounds
+
+
+def test_bwt_forward_on_card_matches_host(card):
+    rng = np.random.default_rng(8)
+    for data in (_text(200000), b"ab" * 30000, b"q" * 5000,
+                 rng.integers(0, 256, 3000, dtype=np.uint8).tobytes(), b"ba"):
+        want, _ = native.transform_forward(1, np.frombuffer(data, np.uint8),
+                                           {"blockSize": len(data)}, 2 * len(data) + 64)
+        assert ops_ss.bwt_forward_device(data, card) == bytes(want), len(data)
+
+
+def _textbook(blocks):
+    """Textbook BWTs (last columns, primary rows) of the blocks with their
+    zero bytes mapped to 1 and one 0 appended: the unique minimum makes the
+    sorted rotations the sorted suffixes."""
+    texts, lasts, prims = [], [], []
+    for b in blocks:
+        t = np.concatenate([np.where(b == 0, 1, b), [0]]).astype(np.uint8)
+        sa = np.concatenate([[len(t) - 1], ops_ss.suffix_array_device(t[:-1], "cpu")])
+        texts.append(t)
+        lasts.append(t[(sa - 1) % len(t)])
+        prims.append(int(np.nonzero(sa == 0)[0][0]))
+    return np.stack(texts), np.stack(lasts), np.array(prims, np.int32)
+
+
+def test_lf_walk_kernel_matches_plain(card):
+    rng = np.random.default_rng(10)
+    blocks = [np.frombuffer(_text(9000), np.uint8), rng.integers(0, 256, 9000, dtype=np.uint8),
+              rng.integers(0, 3, 9000, dtype=np.uint8), np.tile(np.uint8([4, 0]), 4500)]
+    texts, last, prim = _textbook(blocks)
+    lf = ops_bi.build_lf(torch.from_numpy(last))[0].numpy()
+    gpu = [torch.from_numpy(x).to(card) for x in (last, lf, prim)]
+    cpu = [torch.from_numpy(x) for x in (last, lf, prim)]
+    N = last.shape[1]
+    for nsteps in (N, 1, 15, 16, N - 5, N + 37):
+        _kernels.reset_counts()
+        got = ops_bi.lf_walk(*gpu, nsteps)
+        assert _kernels.launches["lf_walk"] == 1
+        assert torch.equal(got.cpu(), ops_bi.lf_walk(*cpu, nsteps)), nsteps
+    assert np.array_equal(ops_bi.bwt_inverse_device(last, prim, card), texts)
+    # the LF table built on the card equals the host's
+    tlf, tcounts = ops_bi.build_lf(gpu[0])
+    assert np.array_equal(tlf.cpu().numpy(), lf)
+    # an LF entry outside [0, N) is flagged by the kernel, a start by the wrapper
+    bad_lf = gpu[1].clone()
+    bad_lf[1, 77] = N
+    bad_lf[3, 0] = -4
+    with pytest.raises(ValueError, match=r"rows \[1, 3\]"):
+        ops_bi.lf_walk(gpu[0], bad_lf, gpu[2], N)
+    starts = gpu[2].clone()
+    starts[0] = N
+    with pytest.raises(ValueError, match="starts"):
+        ops_bi.lf_walk(gpu[0], gpu[1], starts, N)
+
+
+def test_lf_walk_kernel_wide_table(card):
+    # N > 2^24: the packed table holds u64 entries
+    N = (1 << 24) + 3
+    rng = np.random.default_rng(12)
+    last = rng.integers(0, 256, (1, N), dtype=np.uint8)
+    lf = rng.permutation(N).astype(np.int32)[None]
+    starts = np.array([N - 1], np.int32)
+    got = ops_bi.lf_walk(*(torch.from_numpy(x).to(card) for x in (last, lf, starts)), 40000)
+    want = ops_bi.lf_walk(*(torch.from_numpy(x) for x in (last, lf, starts)), 40000)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fpaq_kernel_matches_plain(card):
+    rng = np.random.default_rng(13)
+    text = np.frombuffer(_text(1027), np.uint8)
+    data = np.stack([text, rng.integers(0, 4, 1027, dtype=np.uint8),
+                     rng.integers(0, 256, 1027, dtype=np.uint8), np.full(1027, 0x55, np.uint8)])
+    nbytes = np.array([1027, 600, 1, 0], np.int32)
+    _kernels.reset_counts()
+    got = ops_fb.encode_blocks(torch.from_numpy(data).to(card), torch.from_numpy(nbytes).to(card))
+    torch.cuda.synchronize()
+    assert _kernels.launches["fpaq_encode"] == 1
+    want = ops_fb.encode_blocks(torch.from_numpy(data), torch.from_numpy(nbytes))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    blocks = [_text(300000), rng.integers(0, 256, 70001, dtype=np.uint8).tobytes(),
+              b"\x00" * 5000, b"z"]
+    for b, (payload, bits) in zip(blocks, ops_fb.fpaq_encode_device_batch(blocks, card)):
+        host, hbits = native.entropy_encode(2, np.frombuffer(b, np.uint8), {"bsVersion": 6})
+        assert payload == host and bits == hbits, len(b)

@@ -147,6 +147,26 @@ def test_host_entropy_types_run_on_host_engine(entropy):
     assert kt.decompress(blob, device="cpu") == data
 
 
+@pytest.mark.parametrize("level", [1, 6])
+def test_host_codecs_decode_natively_in_parallel(level, monkeypatch):
+    # entropy NONE (level 1) and FPAQ (level 6) have no device engine: with
+    # a device set, the Reader still decodes them natively, `jobs` frames
+    # at a time, as kanzi_tpu's default Reader does
+    data = _mixed(300000)
+    blob = kanzi_tpu.compress(data, level=level, block_size=1 << 16, jobs=4,
+                              checksum=32)
+    assert kt.compress(data, level=level, block_size=1 << 16, jobs=4, checksum=32,
+                       device="cpu") == blob
+    batches = []
+    read_batch = Reader._read_batch_parallel
+    monkeypatch.setattr(Reader, "_read_batch_parallel",
+                        lambda self: batches.append(1) or read_batch(self))
+    _kernels.reset_counts()
+    assert kt.decompress(blob, jobs=4, device="cpu") == kanzi_tpu.decompress(blob, jobs=4)
+    assert len(batches) >= 2
+    assert sum(_kernels.plain_calls.values()) == 0
+
+
 @pytest.mark.parametrize("entropy", ["ANS0", "ANS1", "RANGE"])
 def test_pending_device_engines_raise(entropy):
     """ANS0, ANS1 and RANGE on device="cpu": the stream equals kanzi_tpu's

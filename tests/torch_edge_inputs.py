@@ -247,3 +247,40 @@ def pack_cases() -> dict:
     cases["negative_entry"] = (s, np.full(4, 4096, np.int32),
                                np.array([0, 0, 1, 1], np.int32), t)
     return cases
+
+
+def ans_u32_cases() -> dict:
+    """name -> (decode rows {bufs, nbytes, states0, f2s, dtabs, ngroups,
+    lr}, order): table planes of u32 values, freq in [2^17, 2^24)
+    ("freq_2^17"), [2^24, 2^31) ("freq_2^24") and at or above 2^31
+    ("freq_2^31"), cumFreq at or above 2^31 ("cum_2^31"), and rows whose
+    freqs are all below 2^16 but one of the second row's, 2^24 + 5
+    ("mixed"), in both orders, at logRange 12. Each row's stream holds
+    every byte the row can read; the third row has no groups."""
+    cases = {}
+    planes = {"freq_2^17": ((1 << 17, 1 << 24), (0, 1 << 16)),
+              "freq_2^24": ((1 << 24, 1 << 31), (0, 1 << 16)),
+              "freq_2^31": ((1 << 31, 1 << 32), (0, 1 << 16)),
+              "cum_2^31": ((1, 1 << 12), (1 << 31, 1 << 32)),
+              "mixed": ((1, 1 << 16), (0, 1 << 16))}
+    for order in (0, 1):
+        for i, (name, (freq, cum)) in enumerate(planes.items()):
+            rng = np.random.default_rng(170 + 10 * order + i)
+            B, G, lr = 3, 64, 12
+            T = 65536 if order else 256
+            S = 8 * G + 16
+            dtabs = np.stack([rng.integers(*freq, (B, T), dtype=np.uint64),
+                              rng.integers(*cum, (B, T), dtype=np.uint64)], axis=1)
+            if name == "mixed":
+                dtabs[1, 0, 7] = (1 << 24) + 5
+            cases[f"{name}_o{order}"] = ({
+                "bufs": rng.integers(0, 256, (B, S), dtype=np.uint8),
+                "nbytes": np.full(B, S, np.int32),
+                "states0": rng.integers(1 << 15, 1 << 32, (B, 4),
+                                        dtype=np.uint64).astype(np.uint32),
+                "f2s": rng.integers(0, 256, (B, (256 if order else 1) << lr),
+                                    dtype=np.uint8),
+                "dtabs": dtabs.astype(np.uint32),
+                "ngroups": np.array([G, 40, 0], np.int32),
+                "lr": np.full(B, lr, np.int32)}, order)
+    return cases

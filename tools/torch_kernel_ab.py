@@ -50,10 +50,10 @@ def old_ops(root: str):
 
 
 def device_ms(torch, fn, reps: int) -> float | None:
-    """Mean device time of one kernel launch of fn, a call that launches
-    one kernel: the device times torch.profiler records over `reps` calls
-    after one warm-up, divided by the launches it recorded. It leaves out
-    the host's share of the call. None where no device time is recorded."""
+    """Mean device time of one call of fn: the device times torch.profiler
+    records over `reps` calls after one warm-up (every launch of a call,
+    memsets included), divided by `reps`. It leaves out the host's share of
+    the call. None where no device time is recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -62,10 +62,8 @@ def device_ms(torch, fn, reps: int) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    launches = sum(e.count for e in events)
-    total = sum(e.self_device_time_total for e in events) / 1e3
-    return total / launches if launches else None
+    total = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return total / reps if total > 0 else None
 
 
 def call(fn, args, outs):
@@ -109,13 +107,25 @@ def cases(torch, kt, native, raw, cuda):
         out[f"K4 {list(args[0].shape)}"] = ("huffman", "decode_lanes", args,
                                             {"bad": bad}, 10)
 
-    for label, order, posts, reps in (
-            ("K5 ANS0", 0, cs.transform_posts(native, kt, raw[:4], cs.LEVEL5_CHAIN, "ANS0"), 10),
-            ("K5 ANS1", 1, list(raw[:4]), 3)):
+    posts5 = cs.transform_posts(native, kt, raw[:4], cs.LEVEL5_CHAIN, "ANS0")
+    for label, order, posts, reps in (("K5 ANS0", 0, posts5, 10),
+                                      ("K5 ANS1", 1, list(raw[:4]), 3)):
         st = to_port_state(ans_device.DeviceANSEngine(order, cuda).encode_batch(posts)[1],
                            cuda)
         args = (st["ans_syms"], st["ngroups"], st["ans_tables"])
         out[f"{label} {list(args[0].shape)}"] = ("ans", "encode_chunks", args, {}, reps)
+    # K6: one block's host ANS0 payload (level 5) and one raw block's ANS1
+    # payload, as the Reader decodes them
+    for label, etype, order, post, reps in (("K6 ANS0", 5, 0, posts5[0], 10),
+                                            ("K6 ANS1", 8, 1, raw[0], 3)):
+        payload, _ = native.entropy_encode(etype, post, {"bsVersion": 6})
+        batch, _ = ans_device.decode_batch(np.frombuffer(payload, np.uint8), len(post), order)
+        st = to_port_state(batch, cuda)
+        glen = int(batch["ngroups"].max())
+        args = tuple(st[k] for k in ("bufs", "nbytes", "states0", "f2s", "dtabs", "ngroups",
+                                     "lr")) + (order, glen)
+        out[f"{label} {[len(batch['ngroups']), glen, 4]}"] = ("ans", "decode_chunks", args,
+                                                            {}, reps)
 
     # K7: the RANGE Writer's batch (transform LZ, jobs=4: four 4 MiB
     # blocks); K8: the first chunk of one block's host RANGE payload
