@@ -20,8 +20,10 @@ Phases, each failing hard (no exception is caught):
    period-2 block, K10 at (4, 65536) and K11 at (2, 1024);
 3. the slice: a 64 MiB seeded corpus through compress/decompress at levels
    2, 3 and 5 on the card, and its first 16 MiB through the ANS1 and RANGE
-   codecs, byte-identical to the host C++ path, each path read by the
-   launch counters;
+   codecs, byte-identical to the host C++ path, each decoded with the
+   `jobs` it was encoded with, each path read by the launch counters; the
+   device decode's launches of each run checked: one a batch of blocks
+   (K4, K6), the longest block's chunk count a batch at most (K8);
 4. compress_step on the real blocks and lanes, checked against numpy and
    the integer entropy reference;
 5. bwt_fpaq: the device BWT and FPAQ entry points on the corpus's 16
@@ -30,9 +32,11 @@ Phases, each failing hard (no exception is caught):
    (K10) on the blocks' textbook BWTs, decoding to the blocks;
    fpaq_encode_device_batch (K11) on the 16 blocks, byte-identical to the
    host FPAQ encoder; each kernel's time at that shape beside the host
-   C++ time of the same work (K9 also per block, with its rounds);
-6. a profile of the level 2 device path: the device's busy share
-   (torch.profiler) and the host functions that take the time (cProfile).
+   C++ time of the same work (K9 also per block, with its rounds and the
+   suffixes each round sorted);
+6. a profile of the level 2, ANS1 and RANGE device paths: the device's
+   busy share (torch.profiler) and the host functions that take the time
+   (cProfile).
 
 It then prints one JSON line with every kernel's numbers and, last, the
 result line {"ok": true, "device": {...}}. Without a card, or without the
@@ -157,9 +161,19 @@ def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def reader_ans_batch(native, ans_device, posts, order: int) -> dict:
+    """The K6 rows of the blocks' host ANS payloads stacked as the batched
+    Reader stacks them."""
+    from kanzi_tpu_torch.entropy import device_io
+    etype = 8 if order else 5
+    return device_io.stack([ans_device.decode_batch(
+        np.frombuffer(native.entropy_encode(etype, p, {"bsVersion": 6})[0], np.uint8),
+        len(p), order)[0] for p in posts])
+
+
 def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     """K5-K8 against their plain versions at the main path's shapes."""
-    from kanzi_tpu_torch.entropy import ans_device, range_device
+    from kanzi_tpu_torch.entropy import ans_device, device_io, range_device
     from kanzi_tpu_torch.ops import ans as ops_ans, range as ops_range
     from kanzi_tpu_torch.ops.state import to_port_state
 
@@ -189,10 +203,9 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     check(int(ops_ans.encode_chunks(*full)[1].item()) == 4 * G, "every-step row")
     del st, a, full
 
-    # K6, order 0: one block's host ANS0 payload, as the Reader decodes it
-    payload, _ = native.entropy_encode(5, posts5[0], {"bsVersion": 6})
-    batch, _ = ans_device.decode_batch(np.frombuffer(payload, np.uint8),
-                                       len(posts5[0]), 0)
+    # K6, order 0: the rows of four blocks' host ANS0 payloads in one
+    # launch, as the batched Reader decodes them at level 5 (jobs=4)
+    batch = reader_ans_batch(native, ans_device, posts5, 0)
     glen = int(batch["ngroups"].max())
     st = to_port_state(batch, cuda)
     a = (st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
@@ -210,8 +223,8 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     dec["ns_per_step"] = dec["ms"] * 1e6 / nsym
     del st, a
 
-    # order 1 (ANS1): the kernels timed at the Writer's shape (four raw
-    # blocks, one 2^20-group row each) and the Reader's (one block); the
+    # order 1 (ANS1): the kernels timed at the Writer's and the batched
+    # Reader's shape (four raw blocks, one 2^20-group row each); the
     # plain loop over 2^20 groups would take minutes, so kernel and plain
     # version are held against each other on one 32 KiB chunk
     eng1 = ans_device.DeviceANSEngine(1, cuda)
@@ -226,15 +239,15 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     enc["order1"]["ns_per_step"] = (enc["order1"]["ms"] * 1e6
                                     / (4 * int(batch["ngroups"].sum())))
     del st, a
-    payload, _ = native.entropy_encode(8, raw[0], {"bsVersion": 6})
-    batch, _ = ans_device.decode_batch(np.frombuffer(payload, np.uint8), BLOCK, 1)
+    batch = reader_ans_batch(native, ans_device, list(raw[:4]), 1)
     glen = int(batch["ngroups"].max())
     st = to_port_state(batch, cuda)
     a = (st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
          st["ngroups"], st["lr"])
+    B = a[0].shape[0]
     nsym = 4 * int(batch["ngroups"].sum())
-    bms, bby = bound(nbytes_of(*a) + glen * 4 + 4, 12 * nsym)
-    dec["order1"] = dict(shape=[1, glen, 4], bound_ms=bms, bound_by=bby,
+    bms, bby = bound(nbytes_of(*a) + B * glen * 4 + B * 4, 12 * nsym)
+    dec["order1"] = dict(shape=[B, glen, 4], bound_ms=bms, bound_by=bby,
                          ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 1, glen), 3))
     dec["order1"]["ns_per_step"] = dec["order1"]["ms"] * 1e6 / nsym
     del st, a
@@ -299,20 +312,23 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
                        u_dec, (glen_u,))
     del st, a, u, u_dec
 
-    # K8: the first chunk of one block's host RANGE payload, one row as the
-    # Reader's chunk walk launches it
-    payload, _ = native.entropy_encode(4, posts_lz[0], {"bsVersion": 6})
-    _, _, batch = range_device.chunk_batch(np.frombuffer(payload, np.uint8), 0,
-                                           range_device._CHUNK)
+    # K8: the first chunks of four blocks' host RANGE payloads, four rows as
+    # the batched Reader's lockstep walk launches them (jobs=4)
+    payloads = [native.entropy_encode(4, p, {"bsVersion": 6})[0] for p in posts_lz]
+    batch = device_io.stack([range_device.chunk_batch(np.frombuffer(p, np.uint8), 0,
+                                                      range_device._CHUNK)[2]
+                             for p in payloads])
+    payload = payloads[0]
     st = to_port_state(batch, cuda)
     a = (st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"], st["shifts"],
          st["nvalid"])
     glen = range_device._CHUNK
+    B = a[0].shape[0]
     err = hold(torch, ops_range.decode_chunks, ops_range._decode_chunks_plain, a, (glen,))
-    bms, bby = bound(nbytes_of(*a) + glen + 4, 30 * glen)
+    bms, bby = bound(nbytes_of(*a) + B * glen + B * 4, 30 * B * glen)
     r = results["range_decode"] = dict(
         source="kanzi_tpu_torch/csrc/range.cu", replaces="kanzi_tpu/ops/range.py:186",
-        shape=[1, glen], max_abs_err=max(err, u32_dec_err),
+        shape=[B, glen], max_abs_err=max(err, u32_dec_err),
         ms=median_ms(torch, lambda: ops_range.decode_chunks(*a, glen), 20),
         plain_ms=median_ms(torch, lambda: ops_range._decode_chunks_plain(*a, glen), 1, 0),
         bound_ms=bms, bound_by=bby, library_ms=None)
@@ -499,6 +515,14 @@ def bwt_fpaq(torch, K, native, raw, device, held, results) -> dict:
         per_block.append(median_ms(torch, lambda: ops_ss.prefix_double(padded, len(b)), 3, 0))
     print(f"  K9 prefix_double per block: ms {per_block}, rounds {rounds} (the last "
           f"is the period-2 block); 16 corpus blocks {sum(per_block[:B])} ms", flush=True)
+    active = {}
+    for label, b in (("corpus block 0", blocks[0]), ("period-2 block", blocks[-1])):
+        ops_ss.prefix_double(padded_block(torch, b, device), len(b))
+        buf = np.zeros(64, np.int64)
+        active[label] = buf[:K.query("kz_prefix_double_active", buf.ctypes.data, 64)].tolist()
+        print(f"  K9 suffixes sorted per round, {label}: {active[label]} (sum "
+              f"{sum(active[label])}, against {rounds[0 if label[0] == 'c' else -1]} "
+              f"x {len(b)} for whole-block rounds)", flush=True)
     h = held["prefix_double corpus"]
     check(h["rounds"] == rounds[0], "K9 rounds differ between calls")
     bms, bby = prefix_double_bound(h["shape"][0], rounds[0])
@@ -506,7 +530,7 @@ def bwt_fpaq(torch, K, native, raw, device, held, results) -> dict:
         source="kanzi_tpu_torch/csrc/suffix_sort.cu",
         replaces="kanzi_tpu/ops/suffix_sort.py:40", shape=h["shape"], max_abs_err=0.0,
         ms=per_block[0], plain_ms=h["plain_ms"], bound_ms=bms, bound_by=bby,
-        library_ms=h["library_ms"], per_block_ms=per_block, rounds=rounds,
+        library_ms=h["library_ms"], per_block_ms=per_block, rounds=rounds, active=active,
         period2=dict(held["prefix_double period2"], ms=per_block[-1],
                      bound_ms=prefix_double_bound(h["shape"][0], rounds[-1])[0]))
 
@@ -552,21 +576,27 @@ def bwt_fpaq(torch, K, native, raw, device, held, results) -> dict:
     return counts
 
 
-def run_path(torch, kt, K, label, data, reps, kw, kernels) -> dict:
+def run_path(torch, kt, K, label, data, reps, kw, kernels, decode_limits) -> dict:
     """One slice path: `reps` runs of the device and the host C++ paths in
-    turns, byte-identical streams decoded to the input. The launch counts
-    are set to 0 just before and read just after; returns them."""
+    turns, byte-identical streams decoded to the input, each decoded with
+    the `jobs` it was encoded with. The launch counts are set to 0 just
+    before and read just after; returns them. The device decode's launches
+    of each run are checked against `decode_limits` (kernel -> the most
+    one decode may make: one a batch, or the longest block's chunks a batch
+    for K8), which shows that the Reader batches its blocks."""
     K.reset_counts()
     runs = {k: [] for k in ("device encode", "device decode",
                             "host C++ encode", "host C++ decode")}
+    decode_launches = []
     for _ in range(reps):
         for device, name in (("cuda", "device"), (None, "host C++")):
             t = time.perf_counter()
             blob = kt.compress(data, checksum=32, device=device, **kw)
             torch.cuda.synchronize()
             runs[f"{name} encode"].append(len(data) / (time.perf_counter() - t) / 1e6)
+            before = dict(K.launches)
             t = time.perf_counter()
-            back = kt.decompress(blob, device=device)
+            back = kt.decompress(blob, jobs=kw["jobs"], device=device)
             torch.cuda.synchronize()
             runs[f"{name} decode"].append(len(data) / (time.perf_counter() - t) / 1e6)
             check(back == data, f"{label}: {name} decode != input")
@@ -574,22 +604,29 @@ def run_path(torch, kt, K, label, data, reps, kw, kernels) -> dict:
                 check(blob == dev_blob, f"{label}: device stream != host C++ stream")
             else:
                 dev_blob = blob
+                decode_launches.append({k: K.launches[k] - before[k] for k in kernels})
     counts = dict(K.launches)
     print(f"{label} ({kw}): {len(data)} -> {len(dev_blob)} bytes, {reps} runs "
-          f"of each path, launches {counts}", flush=True)
+          f"of each path, launches {counts}; device decode launches per run "
+          f"{decode_launches[0]} (at most {decode_limits})", flush=True)
     for k, v in runs.items():
         print(f"  {k}: median {statistics.median(v)} MB/s, runs {v}", flush=True)
     for k in kernels:
         check(counts[k] > 0, f"{label}: {k} never launched")
+    for d in decode_launches:
+        for k, most in decode_limits.items():
+            check(0 < d[k] <= most, f"{label}: {d[k]} {k} launches in one decode, "
+                  f"at most {most} (one a batch)")
     check(sum(K.plain_calls.values()) == 0, f"{label}: a plain version ran")
     return counts
 
 
-def profile_level2(torch, kt, corpus: bytes) -> None:
-    """One level 2 device compress and decompress under torch.profiler (the
-    device's busy time against the wall time) and one of each under
-    cProfile (the host functions that take the time). Runs after the
-    measured phases: both profilers slow the host."""
+def profile_path(torch, kt, name: str, data: bytes, kw: dict) -> None:
+    """One device compress and decompress of a slice path under
+    torch.profiler (the device's busy time against the wall time) and one
+    of each under cProfile (the host functions that take the time, on the
+    calling thread). Runs after the measured phases: both profilers slow
+    the host."""
     import cProfile
     import io
     import pstats
@@ -597,11 +634,12 @@ def profile_level2(torch, kt, corpus: bytes) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     def encode():
-        return kt.compress(corpus, level=2, jobs=4, checksum=32, device="cuda")
+        return kt.compress(data, checksum=32, device="cuda", **kw)
 
     blob = encode()
     for label, fn in (("encode", encode),
-                      ("decode", lambda: kt.decompress(blob, device="cuda"))):
+                      ("decode", lambda: kt.decompress(blob, jobs=kw["jobs"],
+                                                       device="cuda"))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -613,11 +651,11 @@ def profile_level2(torch, kt, corpus: bytes) -> None:
         if dev:
             busy = sum(dev.values())
             top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
-            print(f"level 2 {label} under torch.profiler: wall {wall_ms} ms, "
+            print(f"{name} {label} under torch.profiler: wall {wall_ms} ms, "
                   f"device busy {busy} ms (sum of device self times), idle "
                   f"share {1 - busy / wall_ms}; top device: {top}", flush=True)
         else:
-            print(f"level 2 {label} under torch.profiler: wall {wall_ms} ms, "
+            print(f"{name} {label} under torch.profiler: wall {wall_ms} ms, "
                   "no device time recorded: busy share not measured", flush=True)
         pr = cProfile.Profile()
         pr.enable()
@@ -627,7 +665,7 @@ def profile_level2(torch, kt, corpus: bytes) -> None:
         out = io.StringIO()
         pstats.Stats(pr, stream=out).sort_stats("tottime").print_stats(8)
         lines = [ln for ln in out.getvalue().splitlines() if ln.strip()]
-        print(f"level 2 {label} under cProfile, top host functions by own time:")
+        print(f"{name} {label} under cProfile, top host functions by own time:")
         print("\n".join(lines[-9:]), flush=True)
 
 
@@ -742,8 +780,9 @@ def main() -> int:
         ms=median_ms(torch, lambda: ops_huffman.pack_lanes(*args3), 20))
 
     # K4 on the real lanes of the same four blocks' host Huffman payloads:
-    # the Reader's launch decodes one block (its lanes and its tables);
-    # the four blocks' lanes in one launch are held and timed too
+    # the batched Reader's launch at level 2 (jobs=4) decodes the four
+    # blocks' lanes; the level 3 Reader's (jobs=1) one block's, held and
+    # timed too
     lanes_l, tidx_l, dt_l, base = [], [], [], 0
     for post in posts4:
         payload, _ = native.entropy_encode(1, post, {"bsVersion": 6})
@@ -760,7 +799,7 @@ def main() -> int:
                           "dtables": np.concatenate(dt_l)}, cuda)
     dargs, dargs4 = [tuple(x[k] for k in ("lanes", "table_idx", "dtables"))
                      for x in (one, four)]
-    L, S = dargs[0].shape
+    L, S = dargs4[0].shape
     # the engine's call: the table index flags come back beside the symbols
     dbad = torch.empty(len(dargs4[0]), dtype=torch.int32, device=cuda)
     err = 0.0
@@ -770,17 +809,17 @@ def main() -> int:
         check(torch.equal(s_k, s_p) and not dbad[:len(a[0])].any(),
               f"decode_lanes kernel != plain at {list(a[0].shape)}")
         err = max(err, float((s_k.int() - s_p.int()).abs().max().item()))
-    ms = median_ms(torch, lambda: ops_huffman.decode_lanes(*dargs, dbad[:L]), 10)
-    plain_ms = median_ms(torch, lambda: ops_huffman._decode_lanes_plain(*dargs), 1, 0)
-    bms, bby = bound(L * S + L * 4 + dargs[2].numel() * 2 + L * ops_huffman.FRAG
+    ms = median_ms(torch, lambda: ops_huffman.decode_lanes(*dargs4, dbad), 10)
+    plain_ms = median_ms(torch, lambda: ops_huffman._decode_lanes_plain(*dargs4), 1, 0)
+    bms, bby = bound(L * S + L * 4 + dargs4[2].numel() * 2 + L * ops_huffman.FRAG
                      + L * 4, 10 * L * ops_huffman.FRAG)
     results["decode_lanes"] = dict(
         source="kanzi_tpu_torch/csrc/huffman.cu",
         replaces="kanzi_tpu/ops/huffman.py:86", shape=[L, S], max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
         ns_per_step=ms * 1e6 / ops_huffman.FRAG,
-        four_blocks=dict(shape=list(dargs4[0].shape), ms=median_ms(
-            torch, lambda: ops_huffman.decode_lanes(*dargs4, dbad), 10)))
+        one_block=dict(shape=list(dargs[0].shape), ms=median_ms(
+            torch, lambda: ops_huffman.decode_lanes(*dargs, dbad[:len(dargs[0])]), 10)))
     del s_p
     ans_range_kernels(torch, kt, native, raw, cuda, results)
     held = scan_kernels(torch, raw, cuda)
@@ -798,9 +837,9 @@ def main() -> int:
             print(f"  {name}: the level 3 Writer's launch, shape {o['shape']}: "
                   f"{o['ms']:.4f} ms, bound {o['bound_ms']:.6f} ms ({o['bound_by']})",
                   flush=True)
-        if "four_blocks" in r:
-            print(f"  {name}: four blocks' lanes in one launch, shape "
-                  f"{r['four_blocks']['shape']}: {r['four_blocks']['ms']:.4f} ms", flush=True)
+        if "one_block" in r:
+            print(f"  {name}: one block's lanes (the level 3 Reader's launch), shape "
+                  f"{r['one_block']['shape']}: {r['one_block']['ms']:.4f} ms", flush=True)
         if "order1" in r:
             o = r["order1"]
             print(f"  {name} order 1: kernel {o['ms']:.4f} ms at shape "
@@ -824,21 +863,33 @@ def main() -> int:
     # shows beside the medians
     print("== slice", flush=True)
     t_phase = time.perf_counter()
-    from kanzi_tpu_torch.entropy import ans_device
+    from kanzi_tpu_torch.entropy import ans_device, range_device
+    posts_lz = transform_posts(native, kt, raw[:SHORT // BLOCK], "LZ", "RANGE")
     ans_device.counts["host_route"] = 0
     huff, ans, rng_k = ("pack_lanes", "decode_lanes"), ("ans_encode", "ans_decode"), \
         ("range_encode", "range_decode")
     short = corpus[:SHORT]
     main_launches = {k: 0 for k in K.KERNELS}
-    for label, data, reps, kw, kernels in (
-            ("level 2", corpus, SLICE_REPS, dict(level=2, jobs=4), huff),
-            ("level 3", corpus, SLICE_REPS, dict(level=3, jobs=1), huff),
-            ("level 5", corpus, SLICE_REPS, dict(level=5, jobs=4), ans),
+    # one launch a batch of `jobs` blocks (every block of these paths has
+    # device chunks); RANGE: the longest block's chunk count a batch (the
+    # 16 MiB are one batch of four LZ blocks)
+    batches4, batches1 = CORPUS // BLOCK // 4, CORPUS // BLOCK
+    range_chunks = max(-(-len(p) // range_device._CHUNK) for p in posts_lz)
+    for label, data, reps, kw, kernels, limits in (
+            ("level 2", corpus, SLICE_REPS, dict(level=2, jobs=4), huff,
+             {"decode_lanes": batches4}),
+            ("level 3", corpus, SLICE_REPS, dict(level=3, jobs=1), huff,
+             {"decode_lanes": batches1}),
+            ("level 5", corpus, SLICE_REPS, dict(level=5, jobs=4), ans,
+             {"ans_decode": batches4}),
             ("ANS1", short, SHORT_REPS, dict(transform="NONE", entropy="ANS1",
-                                            block_size=BLOCK, jobs=4), ans),
+                                            block_size=BLOCK, jobs=4), ans,
+             {"ans_decode": 1}),
             ("RANGE", short, SHORT_REPS, dict(transform="LZ", entropy="RANGE",
-                                             block_size=BLOCK, jobs=4), rng_k)):
-        for k, v in run_path(torch, kt, K, label, data, reps, kw, kernels).items():
+                                             block_size=BLOCK, jobs=4), rng_k,
+             {"range_decode": range_chunks})):
+        for k, v in run_path(torch, kt, K, label, data, reps, kw, kernels,
+                             limits).items():
             main_launches[k] += v
     print(f"ANS host route (order-1 chunks of 2-3 bytes): "
           f"{ans_device.counts['host_route']} blocks", flush=True)
@@ -881,10 +932,13 @@ def main() -> int:
         main_launches[k] += v
     phase_s["bwt_fpaq"] = time.perf_counter() - t_phase
 
-    # -- 6. where the time of the level 2 device path goes ----------------
+    # -- 6. where the time of the device paths goes -----------------------
     print("== profile", flush=True)
     t_phase = time.perf_counter()
-    profile_level2(torch, kt, corpus)
+    profile_path(torch, kt, "level 2", corpus, dict(level=2, jobs=4))
+    for entropy, transform in (("ANS1", "NONE"), ("RANGE", "LZ")):
+        profile_path(torch, kt, entropy, short, dict(transform=transform, entropy=entropy,
+                                                     block_size=BLOCK, jobs=4))
     phase_s["profile"] = time.perf_counter() - t_phase
     print(f"seconds per phase: {phase_s}", flush=True)
 

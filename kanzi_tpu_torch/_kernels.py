@@ -60,6 +60,7 @@ _API = {
     "suffix_sort.cu": {
         "kz_prefix_double": [_P, _I, _I, _P, _P, _P, _I, _P],
         "kz_prefix_double_scratch": [_I],
+        "kz_prefix_double_active": [_P, _I],
     },
     "bwt_inverse.cu": {
         "kz_lf_walk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -71,7 +72,8 @@ _API = {
 
 # functions that return a value, not cudaGetLastError()
 _RESTYPE = {"kz_ans_decode_scratch": ctypes.c_int64,
-            "kz_prefix_double_scratch": ctypes.c_int64}
+            "kz_prefix_double_scratch": ctypes.c_int64,
+            "kz_prefix_double_active": ctypes.c_int64}
 
 KERNELS = ("histograms_u8", "entropy1024", "pack_lanes", "decode_lanes",
            "ans_encode", "ans_decode", "range_encode", "range_decode",

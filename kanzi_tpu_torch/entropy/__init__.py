@@ -71,6 +71,27 @@ def device_engine(etype: int, device):
     return None
 
 
+def decode_many(etype: int, payloads, out_lens, ctx: dict, map_fn=map) -> list:
+    """Device entropy decode of a batch of blocks' payloads, for a type and
+    ctx that `decodes_on_device` accepts: one kernel launch for the batch
+    (HUFFMAN, ANS0, ANS1), or one per chunk index with a row per block
+    (RANGE). Host prepares and per-block assembly run through `map_fn`
+    (the Reader's pool.map). Returns per block its uint8 array or the
+    exception that rejected its payload; nothing is retried on the host."""
+    if not decodes_on_device(etype, ctx):
+        raise ValueError(f"entropy type {etype} does not decode on the device here")
+    device = ctx["device"]
+    if etype == HUFFMAN_TYPE:
+        from .huffman_device import huffman_decode_many
+        return huffman_decode_many(payloads, out_lens, device, map_fn)
+    if etype in (ANS0_TYPE, ANS1_TYPE):
+        from .ans_device import ans_decode_many
+        return ans_decode_many(payloads, out_lens, 0 if etype == ANS0_TYPE else 1,
+                               device, map_fn)
+    from .range_device import range_decode_many
+    return range_decode_many(payloads, out_lens, device)
+
+
 def encode(etype: int, data, ctx: dict) -> tuple[bytes, int]:
     """Entropy-encode a block. Returns (payload_bytes, exact_bit_length)."""
     buf = np.asarray(data, dtype=np.uint8) if not isinstance(data, (bytes, bytearray)) \

@@ -66,36 +66,49 @@ class DeviceANSEngine:
     def dispatch_many(self, posts):
         """Encode the chunks of every block in ONE kernel launch. Returns
         one opaque handle per block, same contract as dispatch()."""
-        preps, batch = self.encode_batch(posts)
+        return self.dispatch_prepped([self.prep(p) for p in posts])
+
+    def prep(self, post: np.ndarray):
+        """The host half of one block: C++ tables and headers, and the
+        symbol matrices of its device chunks. Owns its arrays, so the
+        Writer runs it for several blocks at once on its pool."""
+        if len(post) <= 32:              # raw small block, on the host
+            return post, None, [], None
+        try:
+            tables, hdr, hdr_bits, flags = native.ans_prepare(post, self.order)
+        except native.ShortANS1Chunk:
+            counts["host_route"] += 1
+            return post, "host", [], None
+        rows, dev_chunks = _block_rows(post, self.order, flags)
+        return post, (hdr, hdr_bits, flags, dev_chunks), rows, tables[dev_chunks]
+
+    def dispatch_prepped(self, preps):
+        """Stack the prep() records of a batch and launch the encode once
+        (from the calling thread: the engine has one CUDA stream). Returns
+        one handle per block."""
+        records, batch = self._stack(preps)
         holder = self._launch(batch) if batch is not None else None
         return [(post, prep, holder if nrows else None, lo, nrows)
-                for post, prep, lo, nrows in preps]
+                for post, prep, lo, nrows in records]
 
     def encode_batch(self, posts):
-        """The host half of dispatch_many: per-block prep records and the
+        """The host half of dispatch_many: per-block records and the
         {ans_syms, ngroups, ans_tables} numpy batch of all device chunks,
-        or None when no chunk goes to the device. Rows round up to a
-        multiple of 4 and groups to 256, as the JAX engine buckets its
-        shapes (bounded zero padding)."""
-        preps = []
-        mats, all_tables = [], []
-        for post in posts:
-            if len(post) <= 32:          # raw small block, on the host
-                preps.append((post, None, 0, 0))
-                continue
-            try:
-                tables, hdr, hdr_bits, flags = native.ans_prepare(post, self.order)
-            except native.ShortANS1Chunk:
-                counts["host_route"] += 1
-                preps.append((post, "host", 0, 0))
-                continue
-            rows, dev_chunks = _block_rows(post, self.order, flags)
-            preps.append((post, (hdr, hdr_bits, flags, dev_chunks), len(mats),
-                          len(rows)))
+        or None when no chunk goes to the device."""
+        return self._stack([self.prep(p) for p in posts])
+
+    @staticmethod
+    def _stack(preps):
+        """Rows round up to a multiple of 4 and groups to 256, as the JAX
+        engine buckets its shapes (bounded zero padding)."""
+        records, mats, all_tables = [], [], []
+        for post, prep, rows, tables in preps:
+            records.append((post, prep, len(mats), len(rows)))
             mats += rows
-            all_tables.append(tables[dev_chunks])
+            if rows:
+                all_tables.append(tables)
         if not mats:
-            return preps, None
+            return records, None
         nrows = len(mats)
         rb = -(-nrows // 4) * 4
         gb = -(-max(len(m) for m in mats) // 256) * 256
@@ -108,7 +121,7 @@ class DeviceANSEngine:
         if rb != nrows:
             tables = np.concatenate(
                 [tables, np.zeros((rb - nrows,) + tables.shape[1:], tables.dtype)])
-        return preps, {"ans_syms": syms, "ngroups": ngroups, "ans_tables": tables}
+        return records, {"ans_syms": syms, "ngroups": ngroups, "ans_tables": tables}
 
     def _launch(self, batch) -> device_io.HostResult:
         def run():
@@ -147,16 +160,18 @@ class DeviceANSEngine:
 
 
 def decode_batch(src: np.ndarray, out_len: int, order: int):
-    """The host half of ans_decode_device, for a payload of a block longer
+    """The host half of one block's decode, for a payload of a block longer
     than 32 bytes: ({bufs, nbytes, states0, f2s, dtabs, ngroups, lr} numpy
-    rows of the device chunks, or None where there are none; the prepare's
-    (bufs, flags, aux), views into pooled scratch that the next prepare
-    overwrites). Raises as ans_decode_device does."""
+    rows of the device chunks, or None where there are none; (the chunk
+    flags, the single symbols of flag-2 chunks)). Every array is the
+    caller's own: the rows are copied out of the prepare's pooled scratch,
+    each bufs row wide enough for its chunk's raw tail. Raises as
+    ans_decode_device does."""
     dtabs, f2s, states, bufs, buf_sz, flags, aux, lrs = \
         native.ans_dec_prepare(src, out_len, order)
     dev = np.nonzero(flags == 0)[0]
     if not len(dev):
-        return None, (bufs, flags, aux)
+        return None, (flags, aux)
     chunk = _chunk_size(order)
     sizes = np.minimum(chunk, out_len - dev * chunk)
     ngroups = ((sizes & ~3) // 4).astype(np.int32)
@@ -165,58 +180,95 @@ def decode_batch(src: np.ndarray, out_len: int, order: int):
         raise KanziError("ans decode: a chunk's stream is shorter than its "
                          "raw tail", ERR_PROCESS_BLOCK)
     width = (256 if order == 1 else 1) << int(lrs[dev].max())
-    return ({"bufs": bufs[dev, :max(int(nbytes.max()), 1)], "nbytes": nbytes,
+    return ({"bufs": bufs[dev, :max(int(buf_sz[dev].max()), 1)], "nbytes": nbytes,
              "states0": states[dev], "f2s": f2s[dev, :width],
              "dtabs": dtabs[dev], "ngroups": ngroups, "lr": lrs[dev]},
-            (bufs, flags, aux))
+            (flags, aux))
 
 
-def ans_decode_device(payload, out_len: int, order: int, device) -> bytes:
-    """Decode an ANS payload with the device pipeline; the chunk decode
-    runs on `device`. Byte-identical to the host decoder, for any logRange
-    the stream's chunk headers carry. A payload that the host prepare
-    rejects raises RuntimeError; one whose renorm reads leave a chunk's
-    stream raises KanziError. Nothing is retried on the host."""
-    if out_len == 0:
-        return b""
-    device = torch.device(device)
-    src = np.frombuffer(payload, dtype=np.uint8) \
-        if not isinstance(payload, np.ndarray) else payload
+def _dec_prep(args):
+    src, out_len, order = args
     if out_len <= 32:                    # raw small block
         if len(src) < out_len:
             raise RuntimeError("ans decode: payload shorter than the block")
-        return src[:out_len].tobytes()
-    batch, (bufs, flags, aux) = decode_batch(src, out_len, order)
-    chunk = _chunk_size(order)
-    out = np.empty(out_len, dtype=np.uint8)
-    if batch is not None:
-        # the prepare's pooled views are copied here, before the next call
+        return src[:out_len].copy()
+    return decode_batch(src, out_len, order)
+
+
+def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map) -> list:
+    """Decode the ANS payloads of a batch of blocks with ONE chunk decode
+    launch on `device` for the device chunks of every block (the rows of
+    all blocks together: the f2s width of the batch's widest logRange,
+    groups and logRange per row). The host prepares and the per-block
+    assembly run through `map_fn` (the Reader's pool.map). Returns per
+    block its uint8 array, byte-identical to the host decoder for any
+    logRange the chunk headers carry, or the exception that rejected it:
+    RuntimeError from the host prepare, KanziError where a chunk's renorm
+    reads leave its stream. Nothing is retried on the host."""
+    device = torch.device(device)
+    preps = device_io.each(map_fn, _dec_prep, [
+        (np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p, n, order)
+        for p, n in zip(payloads, out_lens)])
+    rows, lo = [], {}
+    nrows = 0
+    for i, p in enumerate(preps):
+        if isinstance(p, tuple) and p[0] is not None:
+            rows.append(p[0])
+            lo[i] = nrows
+            nrows += len(p[0]["ngroups"])
+    syms = nread = None
+    if rows:
+        batch = device_io.stack(rows)
         st = to_port_state(batch, device)
         syms, nread = ops_ans.decode_chunks(
             st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
             st["ngroups"], st["lr"], order, int(batch["ngroups"].max()))
         syms = syms.cpu().numpy()
         nread = nread.cpu().numpy()
-        if (nread < 0).any():
-            raise KanziError("ans decode: renorm reads left a chunk's stream",
-                             ERR_PROCESS_BLOCK)
-        for r, c in enumerate(np.nonzero(flags == 0)[0]):
+    chunk = _chunk_size(order)
+
+    def finish(i):
+        p = preps[i]
+        if not isinstance(p, tuple):     # a raw small block, or its error
+            if isinstance(p, Exception):
+                raise p
+            return p
+        rb, (flags, aux) = p
+        out_len = out_lens[i]
+        out = np.empty(out_len, dtype=np.uint8)
+        if rb is not None:
+            r0 = lo[i]
+            nr = nread[r0:r0 + len(rb["ngroups"])]
+            if (nr < 0).any():
+                raise KanziError("ans decode: renorm reads left a chunk's stream",
+                                 ERR_PROCESS_BLOCK)
+            for r, c in enumerate(np.nonzero(flags == 0)[0]):
+                start = int(c) * chunk
+                size = min(chunk, out_len - start)
+                g = int(rb["ngroups"][r])
+                e4 = 4 * g
+                if order == 0:
+                    # group g -> block[4g..4g+3] = states 3, 2, 1, 0
+                    out[start:start + e4] = syms[r0 + r, :g, ::-1].reshape(-1)
+                else:
+                    for j in range(4):
+                        out[start + j * g:start + (j + 1) * g] = syms[r0 + r, :g, j]
+                nf = int(nr[r])
+                out[start + e4:start + size] = rb["bufs"][r, nf:nf + size - e4]
+        for c in np.nonzero(flags == 2)[0]:
             start = int(c) * chunk
-            size = min(chunk, out_len - start)
-            g = int(batch["ngroups"][r])
-            e4 = 4 * g
-            if order == 0:
-                # group g -> block[4g..4g+3] = states 3, 2, 1, 0
-                out[start:start + e4] = syms[r, :g, ::-1].reshape(-1)
-            else:
-                for j in range(4):
-                    out[start + j * g:start + (j + 1) * g] = syms[r, :g, j]
-            nf = int(nread[r])
-            out[start + e4:start + size] = bufs[c, nf:nf + size - e4]
-    for c in np.nonzero(flags == 2)[0]:
-        start = int(c) * chunk
-        out[start:start + min(chunk, out_len - start)] = aux[c]
-    return out.tobytes()
+            out[start:start + min(chunk, out_len - start)] = aux[c]
+        return out
+
+    return device_io.each(map_fn, finish, range(len(preps)))
+
+
+def ans_decode_device(payload, out_len: int, order: int, device) -> bytes:
+    """Decode one ANS payload with the device pipeline (a batch of one); a
+    rejected payload raises as ans_decode_many says."""
+    if out_len == 0:
+        return b""
+    return device_io.one(ans_decode_many([payload], [out_len], order, device))
 
 
 def ans_encode_device(buf, order: int, device) -> tuple[bytes, int]:

@@ -7,12 +7,19 @@ host copies in flight and an event behind them; `HostResult.get` waits on
 that event alone. On the CPU (the plain versions, for the tests) the call
 runs to its end before `launch` returns. `encode_block` takes one block
 through an engine's dispatch and collect.
+
+The Reader's batched decode goes through `each` (a per-block step on its
+pool, a rejected block's exception kept as its result), `stack` (the
+blocks' device rows as one launch's inputs) and `one` (a single block's
+result, for the per-block path).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..core import KanziError
 
 
 class HostResult:
@@ -61,3 +68,45 @@ def encode_block(engine, src: np.ndarray, slack: int) -> tuple[bytes, int]:
     dst = np.zeros(2 * len(src) + slack, dtype=np.uint8)
     bits = engine.collect(engine.dispatch(src), dst, 0)
     return dst[:(bits + 7) >> 3].tobytes(), bits
+
+
+def each(map_fn, fn, items) -> list:
+    """[fn(x) for x in items] through `map_fn` (a pool's map, or map); an
+    item whose fn raises gets that exception as its result, so one
+    rejected block leaves the others of its batch decodable and the
+    caller raises it under the block's id."""
+    def guarded(x):
+        try:
+            return fn(x)
+        except (KanziError, ValueError, RuntimeError) as e:
+            return e
+    return list(map_fn(guarded, items))
+
+
+def one(results) -> bytes:
+    """The bytes of a one-block batch decode; its exception is raised."""
+    (r,) = results
+    if isinstance(r, Exception):
+        raise r
+    return r.tobytes()
+
+
+def stack(rows: list) -> dict:
+    """Concatenate the {name: array} device rows of several blocks along
+    the rows; 2-D arrays of different widths (byte streams, maps) are
+    zero-padded to the widest, which no kernel reads past its row's own
+    length."""
+    out = {}
+    for name in rows[0]:
+        parts = [r[name] for r in rows]
+        if parts[0].ndim == 2 and len({p.shape[1] for p in parts}) > 1:
+            width = max(p.shape[1] for p in parts)
+            padded = np.zeros((sum(len(p) for p in parts), width), parts[0].dtype)
+            at = 0
+            for p in parts:
+                padded[at:at + len(p), :p.shape[1]] = p
+                at += len(p)
+            out[name] = padded
+        else:
+            out[name] = np.concatenate(parts)
+    return out

@@ -88,27 +88,41 @@ class DeviceHuffmanEngine:
     def dispatch_many(self, posts):
         """Pack every block's lanes in ONE kernel launch. Returns one
         opaque handle per block, same contract as dispatch()."""
-        preps, batch = self.lane_batch(posts)
+        return self.dispatch_prepped([self.prep(p) for p in posts])
+
+    def prep(self, post: np.ndarray):
+        """The host half of one block: C++ tables and headers, and the
+        block's lane rows. Owns its arrays, so the Writer runs it for
+        several blocks at once on its pool."""
+        tables, hdr, hdr_bits, flags = native.huffman_prepare(post)
+        return (post, hdr, hdr_bits, flags, tables) + self._build_lanes(post, flags)
+
+    def dispatch_prepped(self, preps):
+        """Stack the prep() records of a batch and launch the pack once
+        (from the calling thread: the engine has one CUDA stream). Returns
+        one handle per block."""
+        records, batch = self._stack(preps)
         holder = self._launch(*batch) if batch is not None else None
         # posts must stay alive until collect(): copy is the caller's concern
         return [(post, hdr, hdr_bits, flags, holder, lo, nl)
-                for post, hdr, hdr_bits, flags, lo, nl in preps]
+                for post, hdr, hdr_bits, flags, lo, nl in records]
 
     def lane_batch(self, posts):
-        """The host half of dispatch_many: per-block prep records and the
+        """The host half of dispatch_many: per-block records and the
         (syms, lane_len, table_idx, tables) numpy batch of all blocks, or
-        None when no chunk carries lanes. Lanes round up to a multiple of
-        64 and tables to 16, as the JAX engine buckets its shapes (bounded
-        zero padding)."""
-        preps = []
+        None when no chunk carries lanes."""
+        return self._stack([self.prep(p) for p in posts])
+
+    def _stack(self, preps):
+        """Lanes round up to a multiple of 64 and tables to 16, as the JAX
+        engine buckets its shapes (bounded zero padding)."""
+        records = []
         all_syms, all_lens, all_tidx, all_tables = [], [], [], []
         lane_base = 0
         table_base = 0
-        for post in posts:
-            tables, hdr, hdr_bits, flags = native.huffman_prepare(post)
-            syms, lens, tidx = self._build_lanes(post, flags)
+        for post, hdr, hdr_bits, flags, tables, syms, lens, tidx in preps:
             nl = 0 if syms is None else len(syms)
-            preps.append((post, hdr, hdr_bits, flags, lane_base, nl))
+            records.append((post, hdr, hdr_bits, flags, lane_base, nl))
             if nl:
                 all_syms.append(syms)
                 all_lens.append(lens)
@@ -117,7 +131,7 @@ class DeviceHuffmanEngine:
             all_tables.append(tables)
             table_base += len(tables)
         if not lane_base:
-            return preps, None
+            return records, None
         syms = np.concatenate(all_syms)
         lens = np.concatenate(all_lens)
         tidx = np.concatenate(all_tidx)
@@ -130,7 +144,7 @@ class DeviceHuffmanEngine:
         tpad = -(-len(tables) // 16) * 16 - len(tables)
         if tpad:
             tables = np.concatenate([tables, np.zeros((tpad, 256), tables.dtype)])
-        return preps, (syms, lens, tidx, tables)
+        return records, (syms, lens, tidx, tables)
 
     def _pack(self, syms, lens, tidx, tables):
         st = to_port_state({"syms": syms, "lane_len": lens,
@@ -159,23 +173,43 @@ class DeviceHuffmanEngine:
                                        lane_bytes, nbits, dst, dst_off)
 
 
-def huffman_decode_device(payload, out_len: int, device) -> bytes:
-    """Decode a Huffman entropy payload with the device pipeline; the
-    lane decode runs on `device`. Byte-identical to the host decoder.
-    A payload that the host prepare rejects raises RuntimeError; a lane
-    whose table index the kernel flags raises KanziError."""
-    if out_len == 0:
-        return b""
-    device = torch.device(device)
-    src = np.frombuffer(payload, dtype=np.uint8) \
-        if not isinstance(payload, np.ndarray) else payload
+def _dec_prep(args):
+    """The host half of one block's decode: the prepare's tables, lanes,
+    chunk flags and raw bytes (the pooled tables and lanes copied, before
+    this thread's next prepare overwrites them)."""
+    src, out_len = args
     dtables, lanes, flags, aux = native.huffman_dec_prepare(src, out_len)
-    if len(lanes):
+    return dtables.copy(), lanes.copy(), flags, aux
+
+
+def huffman_decode_many(payloads, out_lens, device, map_fn=map) -> list:
+    """Decode the Huffman payloads of a batch of blocks with ONE lane
+    decode launch on `device` for the lanes of every block (each block's
+    table indices offset by the tables before it). The host prepares and
+    the per-block assembly run through `map_fn` (the Reader's pool.map).
+    Returns per block its uint8 array, byte-identical to the host decoder,
+    or the exception that rejected it: RuntimeError from the host
+    prepare, KanziError for a lane whose table index the kernel flags."""
+    device = torch.device(device)
+    preps = device_io.each(map_fn, _dec_prep, [
+        (np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p, n)
+        for p, n in zip(payloads, out_lens)])
+    rows, spans, table_base = [], {}, 0
+    lane_base = 0
+    for i, p in enumerate(preps):
+        if isinstance(p, Exception) or not len(p[1]):
+            continue
+        dtables, lanes, flags, _ = p
         dev_chunks = np.nonzero(flags == 0)[0].astype(np.int32)
-        # the prepare's pooled views are copied here, before the next call
-        st = to_port_state({"lanes": lanes, "table_idx": np.repeat(dev_chunks, 4),
-                            "dtables": dtables}, device)
-        bad = torch.empty(len(lanes), dtype=torch.int32, device=device)
+        rows.append({"lanes": lanes, "table_idx": np.repeat(dev_chunks, 4) + table_base,
+                     "dtables": dtables})
+        spans[i] = lane_base
+        lane_base += len(lanes)
+        table_base += len(dtables)
+    syms = lane_bad = None
+    if rows:
+        st = to_port_state(device_io.stack(rows), device)
+        bad = torch.empty(lane_base, dtype=torch.int32, device=device)
 
         def run():
             return st, (ops_huffman.decode_lanes(st["lanes"], st["table_idx"],
@@ -184,28 +218,43 @@ def huffman_decode_device(payload, out_len: int, device) -> bytes:
         # the symbols and the kernel's table index flags come back together
         stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
         syms, lane_bad = device_io.launch(stream, run).get()
-        if lane_bad.any():
+
+    def finish(i):
+        p = preps[i]
+        if isinstance(p, Exception):
+            raise p
+        _, lanes, flags, aux = p
+        lane = spans.get(i, 0)
+        if len(lanes) and lane_bad[lane:lane + len(lanes)].any():
             raise KanziError("huffman decode: a lane's table index is out of "
                              "range", ERR_PROCESS_BLOCK)
-    else:
-        syms = None
-    out = np.empty(out_len, dtype=np.uint8)
-    lane = 0
-    for c in range(len(flags)):
-        start = c * _CHUNK
-        size = min(_CHUNK, out_len - start)
-        if flags[c] == 1:          # raw small chunk
-            out[start:start + size] = aux[c, :size]
-        elif flags[c] == 2:        # single symbol
-            out[start:start + size] = aux[c, 0]
-        else:
-            frag = size // 4
-            out[start:start + 4 * frag] = syms[lane:lane + 4, :frag].reshape(-1)
-            tail = size & 3
-            if tail:
-                out[start + 4 * frag:start + size] = aux[c, :tail]
-            lane += 4
-    return out.tobytes()
+        out_len = out_lens[i]
+        out = np.empty(out_len, dtype=np.uint8)
+        for c in range(len(flags)):
+            start = c * _CHUNK
+            size = min(_CHUNK, out_len - start)
+            if flags[c] == 1:          # raw small chunk
+                out[start:start + size] = aux[c, :size]
+            elif flags[c] == 2:        # single symbol
+                out[start:start + size] = aux[c, 0]
+            else:
+                frag = size // 4
+                out[start:start + 4 * frag] = syms[lane:lane + 4, :frag].reshape(-1)
+                tail = size & 3
+                if tail:
+                    out[start + 4 * frag:start + size] = aux[c, :tail]
+                lane += 4
+        return out
+
+    return device_io.each(map_fn, finish, range(len(preps)))
+
+
+def huffman_decode_device(payload, out_len: int, device) -> bytes:
+    """Decode one Huffman entropy payload with the device pipeline (a
+    batch of one); a rejected payload raises as huffman_decode_many says."""
+    if out_len == 0:
+        return b""
+    return device_io.one(huffman_decode_many([payload], [out_len], device))
 
 
 def huffman_encode_device(buf, device) -> tuple[bytes, int]:

@@ -12,7 +12,8 @@ chunk's header begins where the previous chunk's last renorm read ended),
 so the chunks of one payload are walked one after another: the host parses
 a header (kz_range_dec_chunk), the device decodes the chunk
 (ops.range.decode_chunks), and the host advances its bit cursor by
-60 + 28*nreads. `device` is a CUDA device (the kernels) or "cpu" (the
+60 + 28*nreads. The blocks of a batch walk in lockstep, one launch per
+chunk index with a row per block (range_decode_many). `device` is a CUDA device (the kernels) or "cpu" (the
 plain PyTorch versions, used by the tests).
 """
 
@@ -49,37 +50,54 @@ class DeviceRangeEngine:
     def dispatch_many(self, posts):
         """Encode the chunks of every block in ONE kernel launch. Returns
         one opaque handle per block, same contract as dispatch()."""
-        preps, batch = self.encode_batch(posts)
+        return self.dispatch_prepped([self.prep(p) for p in posts])
+
+    @staticmethod
+    def prep(post: np.ndarray):
+        """The host half of one block: C++ tables and headers of its
+        chunks. Owns its arrays, so the Writer runs it for several blocks
+        at once on its pool."""
+        tables, hdr, hdr_bits, flags, shifts = native.range_prepare(post)
+        return post, tables, hdr, hdr_bits, flags, shifts
+
+    def dispatch_prepped(self, preps):
+        """Stack the prep() records of a batch and launch the encode once
+        (from the calling thread: the engine has one CUDA stream). Returns
+        one handle per block."""
+        records, batch = self._stack(preps)
         holder = self._launch(batch) if batch is not None else None
         return [(post, hdr, hdr_bits, flags, dev_chunks,
                  holder if len(dev_chunks) else None, lo)
-                for post, hdr, hdr_bits, flags, dev_chunks, lo in preps]
+                for post, hdr, hdr_bits, flags, dev_chunks, lo in records]
 
     def encode_batch(self, posts):
-        """The host half of dispatch_many: per-block prep records and the
+        """The host half of dispatch_many: per-block records and the
         {rng_syms, nvalid, rng_tables, shifts} numpy batch of all device
-        chunks, or None when no chunk goes to the device. Columns: the
-        longest chunk of the batch, rounded up to 256."""
-        preps = []
+        chunks, or None when no chunk goes to the device."""
+        return self._stack([self.prep(p) for p in posts])
+
+    @staticmethod
+    def _stack(preps):
+        """Columns: the longest chunk of the batch, rounded up to 256."""
+        records = []
         pieces, all_tables, all_shifts = [], [], []
-        for post in posts:
-            tables, hdr, hdr_bits, flags, shifts = native.range_prepare(post)
+        for post, tables, hdr, hdr_bits, flags, shifts in preps:
             dev_chunks = np.nonzero(flags == 0)[0]
-            preps.append((post, hdr, hdr_bits, flags, dev_chunks, len(pieces)))
+            records.append((post, hdr, hdr_bits, flags, dev_chunks, len(pieces)))
             pieces += [post[c * _CHUNK:(c + 1) * _CHUNK] for c in dev_chunks]
             all_tables.append(tables[dev_chunks])
             all_shifts.append(shifts[dev_chunks])
         if not pieces:
-            return preps, None
+            return records, None
         width = -(-max(len(p) for p in pieces) // 256) * 256
         syms = np.zeros((len(pieces), width), dtype=np.uint8)
         nvalid = np.zeros(len(pieces), dtype=np.int32)
         for r, p in enumerate(pieces):
             syms[r, :len(p)] = p
             nvalid[r] = len(p)
-        return preps, {"rng_syms": syms, "nvalid": nvalid,
-                       "rng_tables": np.concatenate(all_tables),
-                       "shifts": np.concatenate(all_shifts)}
+        return records, {"rng_syms": syms, "nvalid": nvalid,
+                         "rng_tables": np.concatenate(all_tables),
+                         "shifts": np.concatenate(all_shifts)}
 
     def _launch(self, batch) -> device_io.HostResult:
         def run():
@@ -137,34 +155,67 @@ def chunk_batch(src: np.ndarray, bit_pos: int, size: int):
                            "nvalid": np.array([size], np.int32)}
 
 
+def range_decode_many(payloads, out_lens, device) -> list:
+    """Decode the range payloads of a batch of blocks with the device
+    pipeline. The format forces each block's chunk walk (a chunk's header
+    begins where the previous chunk's renorm reads ended), so the blocks'
+    walks step in lockstep: for chunk index c, the host parses the header
+    of chunk c of every block that has one, and ONE decode launch takes a
+    row for each of those chunks that is not header-only; each block's
+    cursor then moves by 60 + 28*nreads of its row. That is as many
+    launches as the longest block has chunks, at most. Returns per block
+    its uint8 array, byte-identical to the host decoder, or the exception
+    that rejected it: RuntimeError for a header the host rejects,
+    KanziError for renorm reads past the payload. Nothing is retried on
+    the host."""
+    device = torch.device(device)
+    srcs = [np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p
+            for p in payloads]
+    res: list = [np.empty(n, dtype=np.uint8) for n in out_lens]
+    bit_pos = [0] * len(srcs)
+    live = [i for i, n in enumerate(out_lens) if n > 0]
+    start = 0
+    while live:
+        rows, owners = [], []
+        for i in live:
+            size = min(_CHUNK, out_lens[i] - start)
+            try:
+                hdr_end, single, row = chunk_batch(srcs[i], bit_pos[i], size)
+            except RuntimeError as e:
+                res[i] = e
+                continue
+            if row is None:              # single-symbol chunk: header only
+                res[i][start:start + size] = single
+                bit_pos[i] = hdr_end
+            else:
+                rows.append(row)
+                owners.append((i, hdr_end, size))
+        if rows:
+            batch = device_io.stack(rows)
+            st = to_port_state(batch, device)
+            syms, nreads = ops_range.decode_chunks(
+                st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"],
+                st["shifts"], st["nvalid"], int(batch["nvalid"].max()))
+            syms = syms.cpu().numpy()
+            nreads = nreads.cpu().numpy()
+            for r, (i, hdr_end, size) in enumerate(owners):
+                nr = int(nreads[r])
+                if nr < 0:
+                    res[i] = KanziError("range decode: renorm reads past the "
+                                        "payload", ERR_PROCESS_BLOCK)
+                    continue
+                res[i][start:start + size] = syms[r, :size]
+                bit_pos[i] = hdr_end + 60 + 28 * nr
+        start += _CHUNK
+        live = [i for i in live
+                if start < out_lens[i] and not isinstance(res[i], Exception)]
+    return res
+
+
 def range_decode_device(payload, out_len: int, device) -> bytes:
-    """Decode a range entropy payload with the device pipeline: the
-    sequential host header walk that the format forces, one device decode
-    per chunk. Byte-identical to the host decoder. A header the host
-    rejects raises RuntimeError; renorm reads past the payload raise
-    KanziError. Nothing is retried on the host."""
+    """Decode one range entropy payload with the device pipeline (a batch
+    of one: its chunk walk, one launch per chunk); a rejected payload
+    raises as range_decode_many says."""
     if out_len == 0:
         return b""
-    device = torch.device(device)
-    src = np.frombuffer(payload, dtype=np.uint8) \
-        if not isinstance(payload, np.ndarray) else payload
-    out = np.empty(out_len, dtype=np.uint8)
-    bit_pos = 0
-    for start in range(0, out_len, _CHUNK):
-        size = min(_CHUNK, out_len - start)
-        hdr_end, single, batch = chunk_batch(src, bit_pos, size)
-        if batch is None:                # single-symbol chunk: header only
-            out[start:start + size] = single
-            bit_pos = hdr_end
-            continue
-        st = to_port_state(batch, device)
-        syms, nreads = ops_range.decode_chunks(
-            st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"],
-            st["shifts"], st["nvalid"], size)
-        nr = int(nreads.cpu()[0])
-        if nr < 0:
-            raise KanziError("range decode: renorm reads past the payload",
-                             ERR_PROCESS_BLOCK)
-        out[start:start + size] = syms.cpu().numpy()[0]
-        bit_pos = hdr_end + 60 + 28 * nr
-    return out.tobytes()
+    return device_io.one(range_decode_many([payload], [out_len], device))

@@ -39,6 +39,7 @@ from .. import transforms as transforms_mod
 from .. import internal
 from .. import native
 from ..bitstream import BitReader, BitWriter
+from ..entropy.device_io import each as _each
 from ..core import (BITSTREAM_TYPE, BITSTREAM_FORMAT_VERSION, COPY_BLOCK_MASK,
                     TRANSFORMS_MASK, MIN_BITSTREAM_BLOCK_SIZE,
                     MAX_BITSTREAM_BLOCK_SIZE, SMALL_BLOCK_SIZE,
@@ -159,14 +160,13 @@ def compress_block_payload(data: np.ndarray, transform_type: int,
     return hdr_bytes + payload, len(hdr_bytes) * 8 + payload_bits
 
 
-def decompress_block_payload(payload: bytes, transform_type: int,
-                             entropy_type: int, ctx: dict,
-                             block_size: int, checksum_bits: int = 0,
-                             block_id: int = 0, listeners=()) -> bytes:
-    """Decode one block frame payload back to its original bytes.
-
-    Mirrors decodingTask.decode (reference: v2/io/CompressedStream.go:1763-2012).
-    """
+def _parse_block_header(payload: bytes, transform_type: int, entropy_type: int,
+                        block_size: int, checksum_bits: int):
+    """The header fields of one block frame payload: (transform type,
+    entropy type, skip flags, pre-transform length, byte offset of the
+    entropy payload, checksum). A copy-mode block has transform and
+    entropy NONE. Raises ERR_BLOCK_SIZE for a length outside the block's
+    bounds."""
     br = BitReader(payload)
     mode = br.read_bits(8)
     skip_flags = 0
@@ -186,29 +186,24 @@ def decompress_block_payload(payload: bytes, transform_type: int,
         raise KanziError(f"Invalid compressed block size: {pre_len}", ERR_BLOCK_SIZE)
 
     checksum1 = br.read_bits(checksum_bits) if checksum_bits else 0
+    # header fields are whole bytes
+    return t_type, e_type, skip_flags, pre_len, br.read >> 3, checksum1
 
+
+def _inverse_block(buf, t_type: int, skip_flags: int, ctx: dict,
+                   pre_len: int) -> bytes:
+    """The inverse transform of one block's entropy output."""
     ctx = dict(ctx)
     ctx["size"] = pre_len
-    hash_type = HashType(checksum_bits // 32)
-    if listeners:
-        _notify(listeners, Event(EventType.BEFORE_ENTROPY, block_id,
-                                 len(payload), checksum1, hash_type, time.time()))
-    offset = br.read >> 3  # header fields are whole bytes
-    buf = entropy_mod.decode(e_type, payload[offset:], pre_len, ctx)
-    if listeners:
-        _notify(listeners, Event(EventType.AFTER_ENTROPY, block_id,
-                                 pre_len, checksum1, hash_type, time.time()))
-        _notify(listeners, Event(EventType.BEFORE_TRANSFORM, block_id,
-                                 pre_len, checksum1, hash_type, time.time()))
-
     seq = transforms_mod.new_sequence(ctx, t_type)
     seq.set_skip_flags(skip_flags)
     out = seq.inverse(np.frombuffer(buf, dtype=np.uint8))
-    result = out.tobytes() if isinstance(out, np.ndarray) else bytes(out)
-    if listeners:
-        _notify(listeners, Event(EventType.AFTER_TRANSFORM, block_id,
-                                 len(result), checksum1, hash_type, time.time()))
+    return out.tobytes() if isinstance(out, np.ndarray) else bytes(out)
 
+
+def _verify_checksum(result: bytes, checksum_bits: int, checksum1: int) -> bytes:
+    """`result`, unless its checksum differs from the frame's
+    (ERR_CRC_CHECK)."""
     if checksum_bits:
         checksum2 = _block_checksum(np.frombuffer(result, dtype=np.uint8), checksum_bits)
         if checksum2 != checksum1:
@@ -216,6 +211,47 @@ def decompress_block_payload(payload: bytes, transform_type: int,
                 f"Corrupted bitstream: expected checksum {checksum1:x}, found {checksum2:x}",
                 ERR_CRC_CHECK)
     return result
+
+
+def _block_error(block_id: int, e: Exception) -> KanziError:
+    """A block's decode failure as the Reader raises it, naming the block:
+    a KanziError keeps its code, a payload the decoders reject
+    (ValueError, RuntimeError) is ERR_PROCESS_BLOCK."""
+    if isinstance(e, KanziError):
+        err = KanziError(f"Block {block_id}: {e.msg}", e.code)
+    else:
+        err = KanziError(f"Block {block_id}: {e}", ERR_PROCESS_BLOCK)
+    err.__cause__ = e
+    return err
+
+
+def decompress_block_payload(payload: bytes, transform_type: int,
+                             entropy_type: int, ctx: dict,
+                             block_size: int, checksum_bits: int = 0,
+                             block_id: int = 0, listeners=()) -> bytes:
+    """Decode one block frame payload back to its original bytes.
+
+    Mirrors decodingTask.decode (reference: v2/io/CompressedStream.go:1763-2012).
+    """
+    t_type, e_type, skip_flags, pre_len, offset, checksum1 = _parse_block_header(
+        payload, transform_type, entropy_type, block_size, checksum_bits)
+    hash_type = HashType(checksum_bits // 32)
+    if listeners:
+        _notify(listeners, Event(EventType.BEFORE_ENTROPY, block_id,
+                                 len(payload), checksum1, hash_type, time.time()))
+    ctx = dict(ctx)
+    ctx["size"] = pre_len
+    buf = entropy_mod.decode(e_type, payload[offset:], pre_len, ctx)
+    if listeners:
+        _notify(listeners, Event(EventType.AFTER_ENTROPY, block_id,
+                                 pre_len, checksum1, hash_type, time.time()))
+        _notify(listeners, Event(EventType.BEFORE_TRANSFORM, block_id,
+                                 pre_len, checksum1, hash_type, time.time()))
+    result = _inverse_block(buf, t_type, skip_flags, ctx, pre_len)
+    if listeners:
+        _notify(listeners, Event(EventType.AFTER_TRANSFORM, block_id,
+                                 len(result), checksum1, hash_type, time.time()))
+    return _verify_checksum(result, checksum_bits, checksum1)
 
 
 class Writer:
@@ -300,7 +336,6 @@ class Writer:
         # every block is one C++ call (encode) + one C++ call (frame splice)
         self._use_native = native.available() and obs is None
         self._stream: np.ndarray | None = None
-        self._scratch: np.ndarray | None = None
         self._bitpos = 0        # bit position within self._stream
         self._bits_total = 0    # bits written over the stream's lifetime
         # device entropy engine: the device encodes the entropy stage of a
@@ -308,8 +343,9 @@ class Writer:
         # device engine in kanzi_tpu run on the host C++ engine
         self.device = _kernels.resolve_device(device)
         self._dev_engine = None
-        self._dev_posts: list = []
-        self._slot_scratch: list = []  # per-block scratch for parallel encode
+        # one buffer per block of a batch, so that its blocks work at once
+        self._dev_posts: list = []     # the device path's transformed blocks
+        self._slot_scratch: list = []  # encoded payloads
         if self.device is not None:
             self._dev_engine = entropy_mod.device_engine(self.entropy_type,
                                                          self.device)
@@ -435,16 +471,23 @@ class Writer:
                                       self.checksum_bits, block_id,
                                       tuple(self.listeners))
 
+    @staticmethod
+    def _slot_buf(bufs: list, slot: int, cap: int) -> np.ndarray:
+        """bufs[slot], grown to `cap` bytes (the list is sized by the
+        calling thread before a batch goes to the pool)."""
+        if bufs[slot] is None or len(bufs[slot]) < cap:
+            bufs[slot] = np.empty(cap, dtype=np.uint8)
+        return bufs[slot]
+
+    def _size_slots(self, n: int) -> None:
+        for bufs in (self._slot_scratch, self._dev_posts):
+            bufs.extend([None] * (n - len(bufs)))
+
     def _encode_one_native(self, block, slot: int = 0) -> tuple[np.ndarray, int]:
         """Encode one block through the C++ one-shot path into the slot's
         scratch buffer; returns (scratch, bits)."""
         data = np.frombuffer(block, dtype=np.uint8)
-        cap = 2 * len(data) + 65536
-        while len(self._slot_scratch) <= slot:
-            self._slot_scratch.append(None)
-        if self._slot_scratch[slot] is None or len(self._slot_scratch[slot]) < cap:
-            self._slot_scratch[slot] = np.empty(cap, dtype=np.uint8)
-        scratch = self._slot_scratch[slot]
+        scratch = self._slot_buf(self._slot_scratch, slot, 2 * len(data) + 65536)
         bits, _post, _flags, _cks = native.block_encode(
             data, self.transform_type, self.entropy_type, self.ctx,
             self.checksum_bits, bool(self.ctx.get("skipBlocks", False)),
@@ -466,9 +509,8 @@ class Writer:
             # fully-native path: one encode + one splice call per block;
             # encodes run concurrently (ctypes releases the GIL — reference
             # P1, one task per block) and frames splice in block order (P2)
+            self._size_slots(len(blocks))
             if self._pool is not None and len(blocks) > 1:
-                while len(self._slot_scratch) < len(blocks):
-                    self._slot_scratch.append(None)
                 results = list(self._pool.map(
                     lambda sb: self._encode_one_native(sb[1], sb[0]),
                     enumerate(blocks)))
@@ -506,23 +548,25 @@ class Writer:
 
     def _process_batch_device(self, blocks) -> None:
         """Heterogeneous batch: host C++ transforms + the device entropy
-        engine.
+        engine, `jobs` blocks at a time.
 
-        Phase 1 transforms every block of the batch on the host, then
-        dispatches the device encode of all of them in one launch (async);
-        phase 2 collects and splices frames in order
+        Phase 1 transforms each block, writes its frame header and makes
+        the engine's host prep of it, each block into its own slot buffer,
+        on the Writer's pool (ctypes releases the GIL, as on the native
+        path). The calling thread stacks the batch's device rows and
+        launches the encode of all of them once (the engine has one CUDA
+        stream). Phase 2 assembles each block's payload into its own slot
+        scratch, on the pool, and the frames splice in block order here
         (the device-era analogue of the reference's processedBlockID
         ordering, v2/io/CompressedStream.go:934-949).
         """
-        while len(self._dev_posts) < len(blocks):
-            self._dev_posts.append(None)
-        staged = []
-        for slot, b in enumerate(blocks):
-            data = np.frombuffer(b, dtype=np.uint8)
-            cap = 2 * len(data) + 65536
-            if self._dev_posts[slot] is None or len(self._dev_posts[slot]) < cap:
-                self._dev_posts[slot] = np.empty(cap, dtype=np.uint8)
-            post_buf = self._dev_posts[slot]
+        engine = self._dev_engine
+        self._size_slots(len(blocks))
+        run = self._pool.map if self._pool is not None and len(blocks) > 1 else map
+
+        def transform(slot):
+            data = np.frombuffer(blocks[slot], dtype=np.uint8)
+            post_buf = self._slot_buf(self._dev_posts, slot, 2 * len(data) + 65536)
             post_len, mode, extra, flags, cks, copy = native.block_transform(
                 data, self.transform_type, self.entropy_type, self.ctx,
                 self.checksum_bits, bool(self.ctx.get("skipBlocks", False)),
@@ -534,25 +578,28 @@ class Writer:
             hdr += post_len.to_bytes(ds, "big")
             if self.checksum_bits:
                 hdr += cks.to_bytes(self.checksum_bits // 8, "big")
-            staged.append((bytes(hdr), post_buf[:post_len], copy))
-        # one device dispatch for the whole batch: per-dispatch transfer +
-        # round-trip cost amortizes over every non-copy block
-        dev_posts = [post for _, post, copy in staged if not copy]
-        dev_handles = iter(self._dev_engine.dispatch_many(dev_posts)
-                           if dev_posts else ())
-        handles = [(hdr, post, None if copy else next(dev_handles))
-                   for hdr, post, copy in staged]
-        for hdr, post, handle in handles:
-            cap = len(hdr) + 2 * len(post) + 65536
-            if self._scratch is None or len(self._scratch) < cap:
-                self._scratch = np.empty(cap, dtype=np.uint8)
-            self._scratch[:len(hdr)] = np.frombuffer(hdr, dtype=np.uint8)
+            post = post_buf[:post_len]
+            return hdr, post, None if copy else engine.prep(post)
+
+        def assemble(args):
+            slot, (hdr, post, handle) = args
+            scratch = self._slot_buf(self._slot_scratch, slot,
+                                     len(hdr) + 2 * len(post) + 65536)
+            scratch[:len(hdr)] = np.frombuffer(hdr, dtype=np.uint8)
             if handle is None:  # copy mode: raw payload
-                self._scratch[len(hdr):len(hdr) + len(post)] = post
+                scratch[len(hdr):len(hdr) + len(post)] = post
                 pbits = 8 * len(post)
             else:
-                pbits = self._dev_engine.collect(handle, self._scratch, len(hdr))
-            self._append_frame(self._scratch, 8 * len(hdr) + pbits)
+                pbits = engine.collect(handle, scratch, len(hdr))
+            return scratch, 8 * len(hdr) + pbits
+
+        staged = list(run(transform, range(len(blocks))))
+        preps = [prep for _, _, prep in staged if prep is not None]
+        handles = iter(engine.dispatch_prepped(preps) if preps else ())
+        framed = [(hdr, post, None if prep is None else next(handles))
+                  for hdr, post, prep in staged]
+        for scratch, bits in run(assemble, enumerate(framed)):
+            self._append_frame(scratch, bits)
 
     def _append_frame(self, payload: np.ndarray, bits: int) -> None:
         need = ((self._bitpos + bits) >> 3) + 64
@@ -655,8 +702,10 @@ class Reader:
     (reference: v2/io/CompressedStream.go:1047-1110).
 
     `device` ("cuda" by default) decodes HUFFMAN, ANS0, ANS1 and RANGE
-    payloads on that device through the per-block payload path; "cpu" uses
-    the plain PyTorch versions; None is the fully native host path.
+    payloads on that device; "cpu" uses the plain PyTorch versions; None is
+    the fully native host path. With `jobs` > 1 and no listener, a device
+    stream decodes `jobs` blocks a launch (_read_batch_device); otherwise
+    block by block, through the per-block payload path.
     """
 
     _REFILL = 1 << 20       # streaming read granularity
@@ -902,6 +951,13 @@ class Reader:
         return (self._use_native and not self.listeners
                 and not entropy_mod.decodes_on_device(self.entropy_type, self.ctx))
 
+    def _device_batch(self) -> bool:
+        """The batched device decode, `jobs` frames a launch: the stream
+        decodes on the device, with no listener (their per-block events
+        stay in order on the per-block path) and no injected bit reader."""
+        return (self._use_native and not self.listeners
+                and entropy_mod.decodes_on_device(self.entropy_type, self.ctx))
+
     def _read_next_block(self) -> bool:
         """Read+decode the next block into the output buffer.
         Returns False at end of stream."""
@@ -964,8 +1020,7 @@ class Reader:
         except (ValueError, RuntimeError) as e:
             # a payload the decoders reject: the error contract of the
             # native path above, device decodes included
-            raise KanziError(f"Block {self._block_id}: {e}",
-                             ERR_PROCESS_BLOCK) from e
+            raise _block_error(self._block_id, e) from e
         if len(data) > self.block_size:
             raise KanziError(f"Block {self._block_id} incorrectly decompressed",
                              ERR_PROCESS_BLOCK)
@@ -973,11 +1028,12 @@ class Reader:
         self._chunks_len += len(data)
         return True
 
-    def _read_batch_parallel(self) -> bool:
-        """Read up to `jobs` frames serially, decode them concurrently
-        (reference: frame reads are serialized on the shared bitstream,
-        decodes overlap — v2/io/CompressedStream.go:1798-1856), then append
-        in block order. Returns False once the end marker was consumed."""
+    def _read_frames(self):
+        """Read up to `jobs` frames serially (the frame reads are serialized
+        on the shared bitstream, reference v2/io/CompressedStream.go:1798-1856),
+        skipping the blocks outside ctx's from/to. Returns ([(bit position
+        of the payload, its bit length, block id)], False once the end
+        marker was consumed)."""
         self._compact()
         frames = []
         more = True
@@ -1000,11 +1056,72 @@ class Reader:
             if (frm is not None and self._block_id < frm) or \
                     (to is not None and self._block_id >= to):
                 continue
-            frames.append((pos, self._block_id))
+            frames.append((pos, bits, self._block_id))
         if frames and int(self.ctx.get("bsVersion", BITSTREAM_FORMAT_VERSION)) < 5:
             raise KanziError(
                 "Legacy bitstream payloads (version < 5) are not supported",
                 ERR_STREAM_VERSION)
+        return frames, more
+
+    def _read_batch_device(self) -> bool:
+        """Read up to `jobs` frames and decode them together: the frame
+        headers on the pool, the device entropy stage of the batch in one
+        launch (one per chunk index for RANGE, entropy.decode_many), the
+        inverse transforms and checksums on the pool; the outputs append
+        in block order. A block that fails raises as _read_next_block
+        would, under its own id (the first failing block of the batch).
+        Returns False once the end marker was consumed."""
+        frames, more = self._read_frames()
+        if not frames:
+            return more
+        payloads = []
+        for pos, bits, _ in frames:
+            br = BitReader(self._src)
+            br._pos = pos
+            payloads.append(br.read_array(bits))
+        run = self._pool.map
+        heads = _each(run, lambda p: _parse_block_header(
+            p, self.transform_type, self.entropy_type, self.block_size,
+            self.checksum_bits), payloads)
+        # copy-mode blocks (entropy NONE) need no device work
+        dev = [i for i, h in enumerate(heads)
+               if not isinstance(h, Exception) and h[1] != entropy_mod.NONE_TYPE]
+        decoded = dict(zip(dev, entropy_mod.decode_many(
+            self.entropy_type, [payloads[i][heads[i][4]:] for i in dev],
+            [heads[i][3] for i in dev], self.ctx, run))) if dev else {}
+
+        def finish(i):
+            if isinstance(heads[i], Exception):
+                raise heads[i]
+            t_type, e_type, skip_flags, pre_len, offset, checksum1 = heads[i]
+            if e_type == entropy_mod.NONE_TYPE:
+                buf = entropy_mod.decode(e_type, payloads[i][offset:], pre_len, self.ctx)
+            else:
+                buf = decoded[i]
+                if isinstance(buf, Exception):
+                    raise buf
+            return _verify_checksum(
+                _inverse_block(buf, t_type, skip_flags, self.ctx, pre_len),
+                self.checksum_bits, checksum1)
+
+        outs = _each(run, finish, range(len(frames)))
+        for (_, _, block_id), out in zip(frames, outs):
+            if isinstance(out, Exception):
+                raise _block_error(block_id, out)
+            if len(out) > self.block_size:
+                raise KanziError(f"Block {block_id} incorrectly decompressed",
+                                 ERR_PROCESS_BLOCK)
+        for out in outs:
+            self._chunks.append(out)
+            self._chunks_len += len(out)
+        return more
+
+    def _read_batch_parallel(self) -> bool:
+        """Read up to `jobs` frames serially, decode them concurrently
+        (reference: frame reads are serialized on the shared bitstream,
+        decodes overlap — v2/io/CompressedStream.go:1798-1856), then append
+        in block order. Returns False once the end marker was consumed."""
+        frames, more = self._read_frames()
         if not frames:
             return more
 
@@ -1015,7 +1132,7 @@ class Reader:
                 self._slot_out[i] = np.empty(self.block_size, dtype=np.uint8)
 
         def decode_one(args):
-            i, (pos, block_id) = args
+            i, (pos, _, block_id) = args
             try:
                 return native.block_decode(
                     self._src, pos >> 3, pos & 7, self.transform_type,
@@ -1042,11 +1159,16 @@ class Reader:
             self._read_header()
         if self._fast is None:
             self._fast = self._native_path()
-        use_batch = (self._fast and self._pool is not None and self.jobs > 1)
+        batch = None
+        if self._pool is not None:
+            if self._fast:
+                batch = self._read_batch_parallel
+            elif self._device_batch():
+                batch = self._read_batch_device
         while not self._eos and (
                 n < 0 or self._available() < n):
-            if use_batch:
-                if not self._read_batch_parallel():
+            if batch is not None:
+                if not batch():
                     self._eos = True
             elif not self._read_next_block():
                 self._eos = True

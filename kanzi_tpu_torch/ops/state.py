@@ -4,8 +4,8 @@ The codec's device ops take state that the host C++ runtime builds (code
 tables, decode tables, lane rows, chunk symbol matrices, renorm streams).
 ``to_port_state`` takes those numpy arrays, as kanzi_tpu feeds them to its
 device ops, and returns tensors in the dtypes the port's kernels take, on
-`device`. Every array is copied: the host's decode prepares return views
-into pooled scratch buffers that the next prepare call overwrites.
+`device`. Every array is copied, once: the host's decode prepares return
+views into pooled scratch buffers that the next prepare call overwrites.
 """
 
 from __future__ import annotations
@@ -68,9 +68,12 @@ def _convert(name: str, arr, device: torch.device) -> torch.Tensor:
             raise TypeError(f"{name}: dtype {a.dtype}, expected uint8")
     else:
         a = a.astype(np.int32, copy=False)
-    # one host copy (the source may be a read-only or pooled view), then
-    # the transfer; on the CPU the copy is the result
-    return torch.from_numpy(np.array(a, order="C")).to(device)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")
+    # the transfer from pageable memory is the copy (it has finished when
+    # .to returns); on the CPU a clone is
+    t = torch.from_numpy(a)
+    return t.to(device) if device.type == "cuda" else t.clone()
 
 
 def to_port_state(arrays: dict, device) -> dict:

@@ -456,7 +456,19 @@ def _suffix_inputs():
              "random_5000": (rng.integers(0, 256, 5000), 5000),
              "period2_65536": (np.tile([7, 9], 32768), 65536),
              "const_20000": (np.full(20000, 255), 20000),
-             "text_random_zeros": (mixed, len(mixed))}
+             "text_random_zeros": (mixed, len(mixed)),
+             # K9's active set: every group closes at once, slowly, or never
+             "const_65536": (np.full(65536, 3), 65536),
+             "period3_100000": (np.tile([5, 1, 9], 33334)[:100000], 100000),
+             "n_true_1": (rng.integers(0, 256, 1024), 1),
+             "n_true_2": (rng.integers(0, 2, 1024), 2),
+             "n_true_1023": (rng.integers(0, 2, 1024), 1023),
+             "size_minus_1": (mixed[:(1 << 21) - 1], (1 << 21) - 1),
+             "dna_2^24": (rng.integers(0, 4, 1 << 24), 1 << 24),
+             # many small groups beside one large one (a long zero run)
+             "small_groups_one_large": (np.concatenate([
+                 rng.integers(0, 256, 1 << 18), np.zeros(1 << 16, np.int64),
+                 rng.integers(0, 8, 1 << 18)]), (1 << 19) + (1 << 16))}
     out = {}
     for name, (sym, n) in cases.items():
         padded = np.zeros(ops_ss._bucket(max(n, len(sym))), np.int32)

@@ -89,3 +89,18 @@ def test_prefix_double_rejects_bad_shapes():
         ss.prefix_double(torch.zeros(1024, dtype=torch.int64), 10)
     with pytest.raises(ValueError, match="no host route"):
         ss.suffix_array_device(b"banana", device=None)
+
+
+def test_prefix_double_small_groups_beside_a_large_one():
+    # many small groups (random bytes) that close in the first rounds beside
+    # one large group (a zero run) that closes last: the shapes of the
+    # card's active-set design, held here on the plain version
+    rng = np.random.default_rng(12)
+    sym = np.concatenate([rng.integers(0, 256, 1500), np.zeros(300, np.int64),
+                          rng.integers(0, 4, 248)]).astype(np.int32)
+    order, rounds = ss.prefix_double(torch.from_numpy(sym), len(sym))
+    want = np.asarray(jax_ss._prefix_double(sym, 2048, np.int32(len(sym))))
+    assert np.array_equal(order.numpy(), want)
+    # two suffixes of the run differ within their first 301 symbols: 2^9
+    # covers that and 2^8 does not
+    assert rounds == 9

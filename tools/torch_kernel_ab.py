@@ -140,6 +140,10 @@ def cases(torch, kt, native, raw, cuda):
     args = (st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"], st["shifts"],
             st["nvalid"], range_device._CHUNK)
     out[f"K8 [1, {range_device._CHUNK}]"] = ("range", "decode_chunks", args, {}, 20)
+    # K9: a corpus block and the period-2 block, as the BWT forward sorts them
+    for label, blk in (("corpus", raw[0]), ("period2", cs.period2_block(len(raw[0])))):
+        out[f"K9 {label}"] = ("suffix_sort", "prefix_double",
+                              (cs.padded_block(torch, blk, cuda), len(blk)), {}, 5)
     return out
 
 
@@ -174,7 +178,8 @@ def main() -> int:
         run_new = lambda: call(new_fn, fargs, outs)  # noqa: E731
         got_old, got_new = run_old(), run_new()
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got_old, got_new))
+        same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                   for a, b in zip(got_old, got_new))
         cs.check(same, f"{label}: old and new outputs differ")
         turns = (run_old, run_new, run_new, run_old)
         ms = [cs.median_ms(torch, f, reps) for f in turns]
