@@ -33,7 +33,8 @@ Phases, each failing hard (no exception is caught):
    fpaq_encode_device_batch (K11) on the 16 blocks, byte-identical to the
    host FPAQ encoder; each kernel's time at that shape beside the host
    C++ time of the same work (K9 also per block, with its rounds and the
-   suffixes each round sorted);
+   suffixes each round sorted; K10 also at the doubling rounds around its
+   wrapper's rule; K11 also in cycles a bit);
 6. a profile of the level 2, ANS1 and RANGE device paths: the device's
    busy share (torch.profiler) and the host functions that take the time
    (cProfile).
@@ -540,26 +541,34 @@ def bwt_fpaq(torch, K, native, raw, device, held, results) -> dict:
     lf_ms = median_ms(torch, lambda: ops_bi.build_lf(last_t), 3)
     lf, _ = ops_bi.build_lf(last_t)
     n = last.shape[1]
-    walk_ms = median_ms(torch, lambda: ops_bi.lf_walk(last_t, lf, prim_t, n), 2)
+    walk_ms = median_ms(torch, lambda: ops_bi.lf_walk(last_t, lf, prim_t, n), 3)
+    # K10's doubling rounds: the wrapper's rule and its neighbours
+    k_rule = ops_bi.jump_rounds(n)
+    jump_ms = {k: median_ms(torch, lambda: ops_bi.lf_walk(last_t, lf, prim_t, n, jump=k), 3)
+               for k in range(k_rule - 2, k_rule + 2)}
     bms, bby = bound(5 * B * n + 4 * B + B * n, B * n)
     results["lf_walk"] = dict(
         source="kanzi_tpu_torch/csrc/bwt_inverse.cu",
         replaces="kanzi_tpu/ops/bwt_inverse.py:48", shape=[B, n], max_abs_err=0.0,
         ms=walk_ms, plain_ms=held["lf_walk"]["plain_ms"], held_on=held["lf_walk"]["shape"],
         bound_ms=bms, bound_by=bby, library_ms=None, build_lf_ms=lf_ms,
-        ns_per_step=walk_ms * 1e6 / n)
+        ns_per_step=walk_ms * 1e6 / n, jump=k_rule, jump_ms=jump_ms)
     del lf, last_t
     # K11 on the 16 blocks
     data = torch.from_numpy(raw.copy()).to(device)
     nb = torch.full((B,), N, dtype=torch.int32, device=device)
     fpaq_ms = median_ms(torch, lambda: ops_fb.encode_blocks(data, nb), 2)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
     bms, bby = bound(B * N + 4 * B * N + 24 * B, 12 * 8 * B * N)
     results["fpaq_encode"] = dict(
         source="kanzi_tpu_torch/csrc/fpaq_batch.cu",
         replaces="kanzi_tpu/ops/fpaq_batch.py:82", shape=[B, N], max_abs_err=0.0,
         ms=fpaq_ms, plain_ms=held["fpaq_encode"]["plain_ms"],
         held_on=held["fpaq_encode"]["shape"], bound_ms=bms, bound_by=bby,
-        library_ms=None, ns_per_step=fpaq_ms * 1e6 / N)
+        library_ms=None, ns_per_step=fpaq_ms * 1e6 / N, sm_mhz=sm_mhz,
+        cycles_per_bit=fpaq_ms * 1e6 / N * sm_mhz / 1e3 / 8)
     for name in ("prefix_double", "lf_walk", "fpaq_encode"):
         r = results[name]
         print(f"{name}: shape {r['shape']} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -570,9 +579,12 @@ def bwt_fpaq(torch, K, native, raw, device, held, results) -> dict:
           f"bound {p2['bound_ms']:.6f} ms, torch.sort rounds {p2['library_ms']:.4f} ms, "
           f"plain {p2['plain_ms']:.4f} ms", flush=True)
     print(f"  lf_walk: {results['lf_walk']['ns_per_step']} ns per step; build_lf on the "
-          f"card {lf_ms:.4f} ms", flush=True)
-    print(f"  fpaq_encode: {results['fpaq_encode']['ns_per_step']} ns per byte of a row",
-          flush=True)
+          f"card {lf_ms:.4f} ms; jump rounds {k_rule} (the rule), ms by rounds "
+          f"{jump_ms}", flush=True)
+    f = results["fpaq_encode"]
+    print(f"  fpaq_encode: {f['ns_per_step']} ns per byte of a row, "
+          f"{f['cycles_per_bit']} cycles a bit at the SM clock read after it "
+          f"({sm_mhz} MHz)", flush=True)
     return counts
 
 

@@ -63,7 +63,7 @@ _API = {
         "kz_prefix_double_active": [_P, _I],
     },
     "bwt_inverse.cu": {
-        "kz_lf_walk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "kz_lf_walk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     },
     "fpaq_batch.cu": {
         "kz_fpaq_encode": [_P, _P, _I, _I, _P, _P, _P, _P],

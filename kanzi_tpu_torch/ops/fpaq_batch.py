@@ -12,7 +12,10 @@ values travel as int32 bits.
 (``csrc/fpaq_batch.cu``, native u64 state) or the wrapper raises; a CPU
 tensor goes through the plain version beside it, which keeps kanzi_tpu's
 exact u64 arithmetic on four 16-bit limbs (int64 products and shifts near
-2^63 would give the wrong bits).
+2^63 would give the wrong bits). A bit's probability depends on the data
+only, so both split the model from the interval chain: the plain version
+as two passes (``_fpaq_model_plain``, then ``_fpaq_coder_plain`` over its
+probabilities), K11 as a producer warp and a consumer lane.
 """
 
 from __future__ import annotations
@@ -61,17 +64,44 @@ def _mul64_16(a, p):
     return out
 
 
-def _encode_blocks_plain(data, nbytes):
-    K.plain_calls["fpaq_encode"] += 1
+def _fpaq_model_plain(data, nbytes):
+    """K11's producer: the probability each bit is coded with, (B, T, 8)
+    int64, bits most significant first. It depends on the data only: a
+    byte's eight contexts tbl * 256 + (bits >> (8 - k)) are distinct, and
+    only valid bytes update the tables or move tbl."""
+    B, T = data.shape
+    dev = data.device
+    probs = torch.full((B, 1024), PSCALE >> 1, dtype=torch.int64, device=dev)
+    tbl = torch.zeros(B, 1, dtype=torch.int64, device=dev)
+    shifts = torch.arange(8, 0, -1, device=dev)             # 8 - k
+    out = torch.zeros(B, T, 8, dtype=torch.int64, device=dev)
+    vals = data.long()
+    nb = nbytes.long()
+    for t in range(T):
+        val = vals[:, t:t + 1]
+        valid = (t < nb)[:, None]
+        flat = tbl * 256 + ((val + 256) >> shifts)
+        p = torch.gather(probs, 1, flat)
+        out[:, t] = p
+        bit1 = ((val >> (shifts - 1)) & 1) == 1
+        # bit 1: p - (int32(p - 65536 + 64) >> 6), a floor division
+        p_new = torch.where(bit1, p - torch.div(p - PSCALE + 64, 64, rounding_mode="floor"),
+                            p - (p >> 6))
+        probs.scatter_(1, flat, torch.where(valid, p_new, p))
+        tbl = torch.where(valid, val >> 6, tbl)
+    return out
+
+
+def _fpaq_coder_plain(data, nbytes, bit_probs):
+    """K11's consumer: the interval chain over the bits of `data`, each
+    coded with its probability from `bit_probs` (B, T, 8), on kanzi_tpu's
+    16-bit limbs. Returns encode_blocks' (words, nwords, low)."""
     B, T = data.shape
     dev = data.device
     zero = torch.zeros(B, dtype=torch.int64, device=dev)
     one = [zero + 1, zero, zero, zero]
     low = [zero] * 4
     high = [zero + _M16, zero + _M16, zero + _M16, zero + 0xFF]   # 2^56 - 1
-    probs = torch.full((B, 1024), PSCALE >> 1, dtype=torch.int64, device=dev)
-    tbl = zero
-    rows = torch.arange(B, device=dev)
     nb = nbytes.long()
     flags = torch.zeros(B, T * 8, dtype=torch.bool, device=dev)
     words = torch.zeros(B, T * 8, dtype=torch.int64, device=dev)
@@ -79,20 +109,14 @@ def _encode_blocks_plain(data, nbytes):
     for t in range(T):
         val = vals[:, t]
         valid = t < nb
-        bits = val + 256
         for k in range(8):
-            flat = tbl * 256 + (bits >> (8 - k))
-            p = probs[rows, flat]
+            p = bit_probs[:, t, k]
             bit0 = ((val >> (7 - k)) & 1) == 0
             split = _shr8(_mul64_16(_shr8(_sub64(high, low)), p))
             low_if0 = _add64(low, _add64(split, one))
             high_if1 = _add64(low, split)
             low = [torch.where(bit0 & valid, a, b) for a, b in zip(low_if0, low)]
             high = [torch.where(~bit0 & valid, a, b) for a, b in zip(high_if1, high)]
-            # bit 1: p - (int32(p - 65536 + 64) >> 6), a floor division
-            p_new = torch.where(bit0, p - (p >> 6),
-                                p - torch.div(p - PSCALE + 64, 64, rounding_mode="floor"))
-            probs[rows, flat] = torch.where(valid, p_new, p)
             # flush when (low ^ high) < 2^24: emit uint32(high >> 24)
             flush = (((low[1] ^ high[1]) >> 8 == 0) & (low[2] == high[2])
                      & (low[3] == high[3]) & valid)
@@ -102,7 +126,6 @@ def _encode_blocks_plain(data, nbytes):
             low = [torch.where(flush, a, b) for a, b in zip((zero, zero, low[0], low[1]), low)]
             high = [torch.where(flush, a, b)
                     for a, b in zip((zero + _M16, zero + _M16, high[0], high[1]), high)]
-        tbl = torch.where(valid, val >> 6, tbl)
     # compact the flush words per row, in emission order; past T dropped
     incl = torch.cumsum(flags.long(), dim=1)
     total = incl[:, -1] if T else zero
@@ -112,6 +135,13 @@ def _encode_blocks_plain(data, nbytes):
     out = out[:, :T]
     out = torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
     return out, total.to(torch.int32), torch.stack(low, dim=1).to(torch.int32)
+
+
+def _encode_blocks_plain(data, nbytes):
+    """The model, then the coder over its probabilities, as K11 splits
+    them."""
+    K.plain_calls["fpaq_encode"] += 1
+    return _fpaq_coder_plain(data, nbytes, _fpaq_model_plain(data, nbytes))
 
 
 def encode_blocks(data: torch.Tensor, nbytes: torch.Tensor):
@@ -136,6 +166,8 @@ def encode_blocks(data: torch.Tensor, nbytes: torch.Tensor):
         raise ValueError(f"encode_blocks: nbytes {tuple(nbytes.shape)}, expected ({B},)")
     if route == "plain":
         return _encode_blocks_plain(data, nbytes)
+    if T >= 1 << 31:
+        raise ValueError(f"encode_blocks: T {T} >= 2^31 (the flush count is an int32)")
     words = torch.empty(B, T, dtype=torch.int32, device=dev)
     nwords = torch.empty(B, dtype=torch.int32, device=dev)
     low = torch.empty(B, 4, dtype=torch.int32, device=dev)

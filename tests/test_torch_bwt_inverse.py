@@ -81,3 +81,68 @@ def test_lf_walk_refuses_out_of_range_indices():
         bi.lf_walk(args[0], bad_lf, args[2], 10)
     with pytest.raises(ValueError, match="no host route"):
         bi.bwt_inverse_device(last, primary, device=None)
+
+
+# K10's decomposition (jump table, checkpoints, segments) in plain PyTorch,
+# against kanzi_tpu's walk: (k, nsteps) around multiples of L = 2^k and
+# below it; N = 960
+@pytest.mark.parametrize("k,nsteps", [(3, 0), (3, 1), (3, 7), (3, 8), (3, 9), (3, 960),
+                                      (3, 997), (5, 31), (5, 32), (5, 33), (5, 64),
+                                      (10, 960), (10, 2000), (0, 500), (1, 2)])
+def test_segmented_walk_matches_jax(k, nsteps):
+    _texts, last, primary = _batch()
+    lf, _ = jax_bi.build_lf(last)
+    starts = primary.astype(np.int32)
+    want = np.asarray(jax_bi.lf_walk(last, lf, starts, nsteps))
+    got = bi._lf_walk_segmented_plain(torch.from_numpy(last), torch.from_numpy(lf),
+                                      torch.from_numpy(starts), nsteps, k)
+    assert got.dtype == torch.uint8 and got.shape == (4, nsteps)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_segmented_walk_non_permutation_lf(k):
+    # lf need not be a permutation: random in-range entries, and a row
+    # whose walk falls into a cycle of three positions
+    rng = np.random.default_rng(20 + k)
+    B, N = 3, 300
+    last = rng.integers(0, 256, (B, N), dtype=np.uint8)
+    lf = rng.integers(0, N, (B, N)).astype(np.int32)
+    lf[2] = (np.arange(N) + 1) % 3
+    starts = np.array([0, N - 1, 150], np.int32)
+    for nsteps in (1, 2 ** k - 1, 2 ** k + 1, N + 37):
+        want = np.asarray(jax_bi.lf_walk(last, lf, starts, nsteps))
+        got = bi._lf_walk_segmented_plain(torch.from_numpy(last), torch.from_numpy(lf),
+                                          torch.from_numpy(starts), nsteps, k)
+        assert np.array_equal(got.numpy(), want), nsteps
+
+
+def test_jump_table_and_checkpoints():
+    # J = lf^(2^k) by doubling equals lf applied 2^k times; the checkpoints
+    # are the walk's cursors at multiples of 2^k
+    _texts, last, primary = _batch()
+    lf = torch.from_numpy(jax_bi.build_lf(last)[0])
+    for k in (0, 1, 3, 6):
+        J = bi._lf_jump_plain(lf, k)
+        want = lf.long()
+        for _ in range(2 ** k - 1):
+            want = torch.gather(lf.long(), 1, want)
+        assert torch.equal(J, want), k
+        ck = bi._lf_checkpoints_plain(J, torch.from_numpy(primary.astype(np.int32)), 5)
+        cur = torch.from_numpy(primary.astype(np.int64))[:, None]
+        for m in range(5):
+            assert torch.equal(ck[:, m:m + 1], cur), (k, m)
+            for _ in range(2 ** k):
+                cur = torch.gather(lf.long(), 1, cur)
+
+
+def test_jump_rounds_rule():
+    assert [bi.jump_rounds(n) for n in (0, 1, 3, 16, 65536, (4 << 20) + 1, 1 << 40)] == \
+        [0, 0, 1, 2, 8, 11, 12]
+    _texts, last, primary = _batch()
+    args = [torch.from_numpy(last), bi.build_lf(torch.from_numpy(last))[0],
+            torch.from_numpy(primary.astype(np.int32))]
+    # the plain route ignores jump, and refuses one outside [0, 30]
+    assert torch.equal(bi.lf_walk(*args, 50, jump=4), bi.lf_walk(*args, 50))
+    with pytest.raises(ValueError, match="jump"):
+        bi.lf_walk(*args, 50, jump=-1)

@@ -542,14 +542,66 @@ def test_lf_walk_kernel_matches_plain(card):
 
 
 def test_lf_walk_kernel_wide_table(card):
-    # N > 2^24: the packed table holds u64 entries
+    # N > 2^24: the packed table holds u64 entries; with the rule's jump
+    # rounds and with none
     N = (1 << 24) + 3
     rng = np.random.default_rng(12)
     last = rng.integers(0, 256, (1, N), dtype=np.uint8)
     lf = rng.permutation(N).astype(np.int32)[None]
     starts = np.array([N - 1], np.int32)
-    got = ops_bi.lf_walk(*(torch.from_numpy(x).to(card) for x in (last, lf, starts)), 40000)
     want = ops_bi.lf_walk(*(torch.from_numpy(x) for x in (last, lf, starts)), 40000)
+    for jump in (None, 0):
+        got = ops_bi.lf_walk(*(torch.from_numpy(x).to(card) for x in (last, lf, starts)),
+                             40000, jump=jump)
+        assert torch.equal(got.cpu(), want), jump
+
+
+def _lf_inputs(seed, B, N):
+    """Random last columns; lf random in range (no permutation), one row
+    a cycle of three positions."""
+    rng = np.random.default_rng(seed)
+    last = rng.integers(0, 256, (B, N), dtype=np.uint8)
+    lf = rng.integers(0, N, (B, N)).astype(np.int32)
+    lf[-1] = (np.arange(N) + 1) % 3
+    starts = rng.integers(0, N, B).astype(np.int32)
+    return last, lf, starts
+
+
+def test_lf_walk_kernel_jump_rounds(card):
+    # nsteps around multiples of L = 2^k and below it, on a permutation
+    # (textbook BWTs) and on a non-permutation lf with a short cycle
+    rng = np.random.default_rng(14)
+    blocks = [np.frombuffer(_text(5000), np.uint8), rng.integers(0, 256, 5000, dtype=np.uint8),
+              rng.integers(0, 2, 5000, dtype=np.uint8)]
+    _, last, prim = _textbook(blocks)
+    lf = ops_bi.build_lf(torch.from_numpy(last))[0].numpy()
+    N = last.shape[1]
+    for inputs in ((last, lf, prim), _lf_inputs(15, 4, N)):
+        gpu = [torch.from_numpy(x).to(card) for x in inputs]
+        cpu = [torch.from_numpy(x) for x in inputs]
+        for k in (0, 1, 3, 5, 8, 13):
+            L = 1 << k
+            for nsteps in sorted({0, 1, L - 1, L, L + 1, 3 * L + 5, N, N + 37}):
+                _kernels.reset_counts()
+                got = ops_bi.lf_walk(*gpu, nsteps, jump=k)
+                assert _kernels.launches["lf_walk"] == 1
+                assert torch.equal(got.cpu(), ops_bi.lf_walk(*cpu, nsteps)), (k, nsteps)
+
+
+def test_lf_walk_kernel_bad_rows_with_jumps(card):
+    # a row flagged bad is skipped by the doubling rounds, the checkpoints
+    # and the segments: the call raises, and the context stays usable
+    last, lf, starts = _lf_inputs(16, 4, 3000)
+    gpu = [torch.from_numpy(x).to(card) for x in (last, lf, starts)]
+    bad_lf = gpu[1].clone()
+    bad_lf[0, 2999] = 1 << 30
+    bad_lf[2, 10] = -1
+    for k in (2, 6, 11):
+        with pytest.raises(ValueError, match=r"rows \[0, 2\]"):
+            ops_bi.lf_walk(gpu[0], bad_lf, gpu[2], 5000, jump=k)
+    torch.cuda.synchronize()
+    got = ops_bi.lf_walk(*gpu, 5000, jump=6)
+    want = ops_bi.lf_walk(*(torch.from_numpy(x) for x in (last, lf, starts)), 5000)
     assert torch.equal(got.cpu(), want)
 
 
@@ -570,3 +622,22 @@ def test_fpaq_kernel_matches_plain(card):
     for b, (payload, bits) in zip(blocks, ops_fb.fpaq_encode_device_batch(blocks, card)):
         host, hbits = native.entropy_encode(2, np.frombuffer(b, np.uint8), {"bsVersion": 6})
         assert payload == host and bits == hbits, len(b)
+
+
+def test_fpaq_kernel_ring_halves(card):
+    # K11's producer and consumer meet at 256-byte ring halves: rows of
+    # different lengths in one launch, nbytes 0 and 1, rows ending at, just
+    # past and several halves beyond a half's end
+    rng = np.random.default_rng(17)
+    lengths = np.array([0, 1, 255, 256, 257, 1300, 513, 769], np.int32)
+    T = int(lengths.max())
+    text = np.frombuffer(_text(T), np.uint8)
+    data = np.stack([text, rng.integers(0, 256, T, dtype=np.uint8)] * 4)
+    data[2::2] = rng.integers(0, 3, (3, T), dtype=np.uint8)
+    _kernels.reset_counts()
+    got = ops_fb.encode_blocks(torch.from_numpy(data).to(card),
+                               torch.from_numpy(lengths).to(card))
+    torch.cuda.synchronize()
+    assert _kernels.launches["fpaq_encode"] == 1
+    want = ops_fb.encode_blocks(torch.from_numpy(data), torch.from_numpy(lengths))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))

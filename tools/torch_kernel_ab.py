@@ -144,6 +144,19 @@ def cases(torch, kt, native, raw, cuda):
     for label, blk in (("corpus", raw[0]), ("period2", cs.period2_block(len(raw[0])))):
         out[f"K9 {label}"] = ("suffix_sort", "prefix_double",
                               (cs.padded_block(torch, blk, cuda), len(blk)), {}, 5)
+    # K10 on the 16 blocks' textbook BWTs (16, 4 MiB + 1) and K11 on the 16
+    # blocks, as chip_smoke's bwt_fpaq phase runs them
+    from kanzi_tpu_torch.ops import bwt_inverse as ops_bi, suffix_sort as ops_ss
+    _, last, prim = cs.textbook(ops_ss, raw, cuda)
+    last_t = torch.from_numpy(last).to(cuda)
+    lf, _ = ops_bi.build_lf(last_t)
+    out[f"K10 {list(last.shape)}"] = ("bwt_inverse", "lf_walk",
+                                      (last_t, lf, torch.from_numpy(prim).to(cuda),
+                                       last.shape[1]), {}, 2)
+    B, N = raw.shape
+    out[f"K11 {[B, N]}"] = ("fpaq_batch", "encode_blocks",
+                            (torch.from_numpy(raw.copy()).to(cuda),
+                             torch.full((B,), N, dtype=torch.int32, device=cuda)), {}, 2)
     return out
 
 
