@@ -7,10 +7,13 @@ Phases, each failing hard (no exception is caught):
 
 1. the card's name and power limit, and the time to build the kernels
    (nvcc, one process per source under kanzi_tpu_torch/csrc/);
-2. kernels: each of the eleven kernels against its plain PyTorch version
-   on the card, at the shapes of the main path, with its median time from
-   CUDA events, its roofline bound and (where one exists) the time of one
-   PyTorch library call computing the same function; the rANS kernels'
+2. kernels: each kernel against its plain PyTorch version on the card, at
+   the shapes of the main path, with its median time from CUDA events, its
+   roofline bound and (where one exists) the time of one PyTorch library
+   call computing the same function; K1, K2 and their fused launch
+   (block_stats, the one compress_step makes) also with their device time
+   from back-to-back launches, beside one empty launch's, and the cluster
+   size the fused kernel takes on this card; the rANS kernels'
    ns per symbol and the range kernels' ns per byte, K4's ns per lane step
    at the Reader's one-block launch and its time on four blocks' lanes, K3
    also held and timed at the level 3 Writer's launch, K5 also held on a
@@ -25,7 +28,7 @@ Phases, each failing hard (no exception is caught):
    device decode's launches of each run checked: one a batch of blocks
    (K4, K6), the longest block's chunk count a batch at most (K8);
 4. compress_step on the real blocks and lanes, checked against numpy and
-   the integer entropy reference;
+   the integer entropy reference, its block statistics one fused launch;
 5. bwt_fpaq: the device BWT and FPAQ entry points on the corpus's 16
    blocks of 4 MiB: bwt_forward_device (K9) on each and on a period-2
    block, byte-identical to the host BWT transform; bwt_inverse_device
@@ -588,6 +591,97 @@ def bwt_fpaq(torch, K, native, raw, device, held, results) -> dict:
     return counts
 
 
+def device_ms(torch, fn, reps: int = 100) -> float:
+    """Device time of one call of fn: `reps` calls enqueued behind a spin
+    kernel (torch.cuda._sleep), so they run back to back on the device
+    whatever the host's time a call, between two CUDA events; fails if the
+    spin ended before the host had enqueued them all."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1e8))            # about 50 ms at 2 GHz
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    check(not a.query(), "device_ms: the host fell behind the spin kernel")
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def block_stats_kernels(torch, K, block_stats, blocks, results) -> None:
+    """K1, K2 and their fused launch (block_stats) against their plain
+    versions on the 16 corpus blocks of 4 MiB, each with its wrapper-call
+    time (CUDA events around one call), its device time (device_ms) and
+    the floor of one empty launch measured both ways."""
+    cuda = blocks.device
+    B, N = blocks.shape
+    h_f, e_f = block_stats.block_stats(blocks)
+    h_p, e_p = block_stats._block_stats_plain(blocks)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=cuda)
+    h_k = block_stats.histograms_u8(blocks)
+    e_k = block_stats.entropy1024(h_f, lengths)
+    torch.cuda.synchronize()
+    check(torch.equal(h_f, h_p), "block_stats kernel histograms != plain")
+    check(torch.equal(h_k, h_p), "histograms_u8 kernel != plain")
+    check(torch.equal(e_f, e_k), "block_stats entropy != entropy1024 on its histograms")
+    err_f = int((e_f - e_p).abs().max().item())
+    err_k = int((e_k - block_stats._entropy_plain(h_f, lengths)).abs().max().item())
+    check(err_f <= 1 and err_k <= 1, f"entropy kernel vs plain differ by {max(err_f, err_k)} > 1")
+    resident = np.zeros(8, np.int64)
+    c = K.query("kz_block_stats_cluster", B, N, resident.ctypes.data)
+    check(c > 0, f"kz_block_stats_cluster failed: {c}")
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    empty = lambda: K.query("kz_empty_launch", stream)  # noqa: E731
+    floor = dict(device_ms=device_ms(torch, empty, 200), ms=median_ms(torch, empty, 50))
+
+    idx64 = blocks.long()
+    ones64 = torch.ones_like(idx64)
+    lib_out = torch.zeros(B, 256, dtype=torch.int64, device=cuda)
+    lib_ms = median_ms(torch, lambda: lib_out.zero_().scatter_add_(1, idx64, ones64), 5)
+    del idx64, ones64, lib_out
+    for name, line, fn, plain, nbytes, nops, lib, err in (
+            ("block_stats", 100, lambda: block_stats.block_stats(blocks),
+             lambda: block_stats._block_stats_plain(blocks),
+             B * N + B * 256 * 4 + B * 4, B * N + 4 * B * 256, None, err_f),
+            ("histograms_u8", 27, lambda: block_stats.histograms_u8(blocks),
+             lambda: block_stats._histograms_plain(blocks), B * N + B * 256 * 4, B * N,
+             lib_ms, 0),
+            ("entropy1024", 67, lambda: block_stats.entropy1024(h_f, lengths),
+             lambda: block_stats._entropy_plain(h_f, lengths), B * 256 * 4 + 2 * B * 4,
+             4 * B * 256, None, err_k)):
+        bms, bby = bound(nbytes, nops)
+        results[name] = dict(
+            source="kanzi_tpu_torch/csrc/block_stats.cu",
+            replaces=f"kanzi_tpu/ops/pallas_kernels.py:{line}",
+            shape=[B, N] if name != "entropy1024" else [B, 256], max_abs_err=float(err),
+            ms=median_ms(torch, fn, 50), device_ms=device_ms(torch, fn),
+            plain_ms=median_ms(torch, plain, 5), bound_ms=bms, bound_by=bby, library_ms=lib)
+        r = results[name]
+        print(f"{name}: device {r['device_ms']:.5f} ms, wrapper call {r['ms']:.5f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({bby}): device time at {r['bound_ms'] / r['device_ms']:.1%} "
+              f"of the bound", flush=True)
+    print(f"block_stats: clusters of {c} CTAs a row for {B} rows; clusters of 1..8 CTAs "
+          f"resident at once {resident.tolist()}; one empty launch: device "
+          f"{floor['device_ms']:.5f} ms, wrapper call {floor['ms']:.5f} ms", flush=True)
+    # many short rows (the first MiB as 256 rows of 4 KiB): the kernel's
+    # fixed work a CTA, and the cluster size the card takes for them
+    short = blocks.view(-1)[:256 * 4096].view(256, 4096)
+    h_s, e_s = block_stats.block_stats(short)
+    h_sp, e_sp = block_stats._block_stats_plain(short)
+    torch.cuda.synchronize()
+    check(torch.equal(h_s, h_sp) and int((e_s - e_sp).abs().max().item()) <= 1,
+          "block_stats on 256 rows of 4 KiB != plain")
+    rows = dict(shape=[256, 4096], cluster=K.query("kz_block_stats_cluster", 256, 4096,
+                                                   resident.ctypes.data),
+                device_ms=device_ms(torch, lambda: block_stats.block_stats(short)))
+    print(f"block_stats on 256 rows of 4 KiB: clusters of {rows['cluster']}, device "
+          f"{rows['device_ms']:.5f} ms", flush=True)
+    results["block_stats"].update(cluster=c, resident=resident.tolist(), empty_launch=floor,
+                                  short_rows=rows)
+
+
 def run_path(torch, kt, K, label, data, reps, kw, kernels, decode_limits) -> dict:
     """One slice path: `reps` runs of the device and the host C++ paths in
     turns, byte-identical streams decoded to the input, each decoded with
@@ -709,6 +803,10 @@ def main() -> int:
     phase_s = {"build": time.perf_counter() - t0}
     print(f"kernel build: {phase_s['build']:.3f} s "
           f"(nvcc, {len(K.build_log)} sources in parallel)", flush=True)
+    # what ptxas gave the fused block-stats kernel (registers, shared memory)
+    print("block_stats.cu ptxas: " + "; ".join(
+        ln.split(":", 1)[1].strip() for ln in K.build_log.get("block_stats.cu", "").splitlines()
+        if "registers" in ln), flush=True)
     cuda = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -721,37 +819,7 @@ def main() -> int:
     print("== kernels", flush=True)
     t_phase = time.perf_counter()
     blocks = torch.from_numpy(raw.copy()).to(cuda)
-    B, N = blocks.shape
-    h_k = block_stats.histograms_u8(blocks)
-    h_p = block_stats._histograms_plain(blocks)
-    check(torch.equal(h_k, h_p), "histograms_u8 kernel != plain")
-    idx64 = blocks.long()
-    ones64 = torch.ones_like(idx64)
-    lib_out = torch.zeros(B, 256, dtype=torch.int64, device=cuda)
-    ms = median_ms(torch, lambda: block_stats.histograms_u8(blocks), 20)
-    plain_ms = median_ms(torch, lambda: block_stats._histograms_plain(blocks), 5)
-    lib_ms = median_ms(torch, lambda: lib_out.zero_().scatter_add_(1, idx64, ones64), 5)
-    del idx64, ones64, lib_out
-    bms, bby = bound(B * N + B * 256 * 4, B * N)
-    results["histograms_u8"] = dict(
-        source="kanzi_tpu_torch/csrc/block_stats.cu",
-        replaces="kanzi_tpu/ops/pallas_kernels.py:27", shape=[B, N],
-        max_abs_err=float((h_k - h_p).abs().max().item()), ms=ms,
-        plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=lib_ms)
-
-    lengths = torch.full((B,), N, dtype=torch.int32, device=cuda)
-    e_k = block_stats.entropy1024(h_k, lengths)
-    e_p = block_stats._entropy_plain(h_k, lengths)
-    err = int((e_k - e_p).abs().max().item())
-    check(err <= 1, f"entropy1024 kernel vs plain differ by {err} > 1")
-    ms = median_ms(torch, lambda: block_stats.entropy1024(h_k, lengths), 50)
-    plain_ms = median_ms(torch, lambda: block_stats._entropy_plain(h_k, lengths), 20)
-    bms, bby = bound(B * 256 * 4 + 2 * B * 4, 4 * B * 256)
-    results["entropy1024"] = dict(
-        source="kanzi_tpu_torch/csrc/block_stats.cu",
-        replaces="kanzi_tpu/ops/pallas_kernels.py:67", shape=[B, 256],
-        max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=bby, library_ms=None)
+    block_stats_kernels(torch, K, block_stats, blocks, results)
 
     # K3 on the lane batch of four raw blocks, real tables
     engine = DeviceHuffmanEngine(cuda)
@@ -919,6 +987,10 @@ def main() -> int:
     step_launches = dict(K.launches)
     for k in ("histograms_u8", "entropy1024", "pack_lanes"):
         check(step_launches[k] > 0, f"compress_step: {k} never launched")
+    # the block statistics: one fused launch, no K1 or K2 of their own
+    check(step_launches["block_stats"] == step_launches["histograms_u8"]
+          == step_launches["entropy1024"] == 1,
+          f"compress_step: block statistics took launches {step_launches}, not one fused")
     want = np.stack([np.bincount(r, minlength=256) for r in raw])
     check(np.array_equal(histos.cpu().numpy(), want), "histograms != np.bincount")
     ent = ent.cpu().numpy()
@@ -931,7 +1003,7 @@ def main() -> int:
     check(np.array_equal(words.cpu().numpy(), writer_words)
           and np.array_equal(nbits.cpu().numpy(), writer_nbits),
           "compress_step words != the Writer engine's")
-    print(f"compress_step: {B} blocks, {len(nbits)} lanes, total_bits "
+    print(f"compress_step: {len(raw)} blocks, {len(nbits)} lanes, total_bits "
           f"{int(total.item())}, entropy1024 {ent.tolist()}, launches "
           f"{step_launches}", flush=True)
 
@@ -964,6 +1036,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "device_ms" in r:
+            kernels[-1]["device_ms"] = r["device_ms"]
         check(kernels[-1]["launches"] > 0, f"{name}: no launch on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,8 +38,11 @@ _I = ctypes.c_int64
 # source -> {C function: argtypes}
 _API = {
     "block_stats.cu": {
+        "kz_block_stats": [_P, _I, _I, _P, _P, _P],
         "kz_histograms_u8": [_P, _I, _I, _P, _P],
         "kz_entropy1024": [_P, _P, _I, _P, _P],
+        "kz_block_stats_cluster": [_I, _I, _P],
+        "kz_empty_launch": [_P],
     },
     "huffman.cu": {
         "kz_pack_lanes_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -71,13 +74,14 @@ _API = {
 }
 
 # functions that return a value, not cudaGetLastError()
-_RESTYPE = {"kz_ans_decode_scratch": ctypes.c_int64,
+_RESTYPE = {"kz_block_stats_cluster": ctypes.c_int64,
+            "kz_ans_decode_scratch": ctypes.c_int64,
             "kz_prefix_double_scratch": ctypes.c_int64,
             "kz_prefix_double_active": ctypes.c_int64}
 
-KERNELS = ("histograms_u8", "entropy1024", "pack_lanes", "decode_lanes",
-           "ans_encode", "ans_decode", "range_encode", "range_decode",
-           "prefix_double", "lf_walk", "fpaq_encode")
+KERNELS = ("block_stats", "histograms_u8", "entropy1024", "pack_lanes",
+           "decode_lanes", "ans_encode", "ans_decode", "range_encode",
+           "range_decode", "prefix_double", "lf_walk", "fpaq_encode")
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
 
@@ -193,15 +197,17 @@ def _fn(name: str):
     return _fns[name]
 
 
-def launch(kernel: str, cfunc: str, device: torch.device, *args) -> None:
+def launch(kernel: str | tuple, cfunc: str, device: torch.device, *args) -> None:
     """Call one launch API on `device`'s current stream; raise on a launch
-    error, count the launch otherwise."""
+    error, count the launch otherwise: once for each kernel named, where a
+    fused launch runs the bodies of several."""
     fn = _fn(cfunc)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{cfunc}: CUDA launch failed with error {rc}")
-    launches[kernel] += 1
+    for k in (kernel,) if isinstance(kernel, str) else kernel:
+        launches[k] += 1
 
 
 def query(cfunc: str, *args):

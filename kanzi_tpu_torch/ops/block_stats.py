@@ -15,6 +15,19 @@ import torch
 
 from .. import _kernels as K
 
+MAX_ROWS = 65535          # the launch grid's y dimension
+MAX_LEN = (1 << 31) - 1   # an int32 count
+
+
+def _check_blocks(blocks: torch.Tensor) -> str:
+    route = K.route(blocks)
+    K.check(blocks, "blocks", (torch.uint8,), 2, blocks.device)
+    B, N = blocks.shape
+    if route == "cuda" and (B > MAX_ROWS or N > MAX_LEN):
+        raise ValueError(f"blocks: shape {(B, N)}, the kernel takes at most "
+                         f"{MAX_ROWS} rows of at most {MAX_LEN} bytes")
+    return route
+
 
 def _histograms_plain(blocks: torch.Tensor) -> torch.Tensor:
     K.plain_calls["histograms_u8"] += 1
@@ -25,18 +38,16 @@ def _histograms_plain(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def histograms_u8(blocks: torch.Tensor) -> torch.Tensor:
-    """(B, N) uint8 -> (B, 256) int32 counts, for any N.
+    """(B, N) uint8 -> (B, 256) int32 counts, for any N; rows may start at
+    any alignment. On the card: the block_stats kernel without its entropy
+    tail, one launch.
 
     Replaces kanzi_tpu/ops/pallas_kernels.py: histograms_pallas (Pallas)
     and kanzi_tpu/ops/histogram.py: histograms_u8 (XLA)."""
-    route = K.route(blocks)
-    K.check(blocks, "blocks", (torch.uint8,), 2, blocks.device)
-    if route == "plain":
+    if _check_blocks(blocks) == "plain":
         return _histograms_plain(blocks)
     B, N = blocks.shape
-    if B > 65535:
-        raise ValueError(f"blocks: at most 65535 rows per call, got {B}")
-    out = torch.zeros(B, 256, dtype=torch.int32, device=blocks.device)
+    out = torch.empty(B, 256, dtype=torch.int32, device=blocks.device)
     K.launch("histograms_u8", "kz_histograms_u8", blocks.device,
              blocks.data_ptr(), B, N, out.data_ptr())
     return out
@@ -56,6 +67,8 @@ def entropy1024(histos: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, 256) int32 histograms + (B,) int32 lengths -> (B,) int32 order-0
     entropy x1024, float32 log2 truncated to int (feeds the >= 973 gate;
     never a format-visible decision). Lengths are guarded with max(n, 1).
+    On the card the body is block_stats' entropy tail, so both give the
+    same value on the same histogram.
 
     Replaces kanzi_tpu/ops/pallas_kernels.py: entropy1024_pallas (Pallas)
     and kanzi_tpu/ops/histogram.py: entropy1024 (XLA)."""
@@ -75,11 +88,26 @@ def entropy1024(histos: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def block_stats(blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Histogram + entropy gate of every row of a (B, N) uint8 batch (the
-    composition kanzi_tpu/ops/pallas_kernels.py: block_stats_pallas runs
-    as one jitted program; here two launches on one stream)."""
-    h = histograms_u8(blocks)
+def _block_stats_plain(blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    K.plain_calls["block_stats"] += 1
+    h = _histograms_plain(blocks)
     lengths = torch.full((blocks.shape[0],), blocks.shape[1], dtype=torch.int32,
                          device=blocks.device)
-    return h, entropy1024(h, lengths)
+    return h, _entropy_plain(h, lengths)
+
+
+def block_stats(blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Histogram + entropy gate of every row of a (B, N) uint8 batch:
+    ((B, 256) int32, (B,) int32). On the card one launch of the fused
+    kernel, which also counts as a launch of histograms_u8 and entropy1024
+    (it runs both bodies).
+
+    Replaces kanzi_tpu/ops/pallas_kernels.py: block_stats_pallas."""
+    if _check_blocks(blocks) == "plain":
+        return _block_stats_plain(blocks)
+    B, N = blocks.shape
+    h = torch.empty(B, 256, dtype=torch.int32, device=blocks.device)
+    e = torch.empty(B, dtype=torch.int32, device=blocks.device)
+    K.launch(("block_stats", "histograms_u8", "entropy1024"), "kz_block_stats",
+             blocks.device, blocks.data_ptr(), B, N, h.data_ptr(), e.data_ptr())
+    return h, e

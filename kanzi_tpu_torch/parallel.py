@@ -3,8 +3,11 @@
 The single-device form of kanzi_tpu/parallel/__init__.py: compress_step
 (:79-107), which runs per block the histogram + incompressibility estimate
 (the copy-block heuristic) and the Huffman lane pack, and sums the payload
-bits across the mesh with a psum. On one card the psum is a plain sum on the
-device. Sharding across cards is a later slice (ROADMAP.md).
+bits across the mesh with a psum. On the card the block statistics are one
+launch of the fused kernel (ops.block_stats.block_stats, the counterpart of
+kanzi_tpu's block_stats_pallas), the lane pack another. On one card the psum
+is a plain sum on the device. Sharding across cards is a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations

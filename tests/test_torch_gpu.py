@@ -55,6 +55,98 @@ def test_block_stats_kernels_match_plain(card):
     assert (e - block_stats._entropy_plain(h, lengths)).abs().max().item() <= 1
 
 
+def _hold_block_stats(x):
+    """The fused kernel against _block_stats_plain on x: histograms exact,
+    entropy within 1 (float32 sums in another order) and equal to the
+    standalone K2 on the same histograms; histograms_u8 alone equal too."""
+    B, N = x.shape
+    h, e = block_stats.block_stats(x)
+    hp, ep = block_stats._block_stats_plain(x)
+    k2 = block_stats.entropy1024(h, torch.full((B,), N, dtype=torch.int32, device=x.device))
+    h1 = block_stats.histograms_u8(x)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hp)
+    assert torch.equal(h1, hp)
+    assert (e - ep).abs().max().item() <= 1
+    assert torch.equal(e, k2)
+
+
+def _corpus_rows(n):
+    """A constant row, a DNA row and an int32-delta row of n bytes."""
+    rng = np.random.default_rng(12)
+    dna = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
+    delta = np.cumsum(rng.integers(-3, 4, -(-n // 4), dtype=np.int32)).astype("<i4")
+    return np.stack([np.full(n, 0, np.uint8), dna, delta.view(np.uint8)[:n]])
+
+
+def test_block_stats_fused_corpus_rows(card):
+    _hold_block_stats(torch.from_numpy(_corpus_rows(4 << 20)).to(card))
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 17, 1024, (4 << 20) + 7])
+def test_block_stats_fused_row_lengths(card, n):
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, 256, (3, n), dtype=np.uint8)
+    x[1] %= 5
+    _hold_block_stats(torch.from_numpy(x).to(card))
+
+
+@pytest.mark.parametrize("shift", [1, 7, 15])
+def test_block_stats_fused_misaligned_base(card, shift):
+    B, N = 4, 65536 + 5
+    rng = np.random.default_rng(shift)
+    flat = torch.empty(B * N + shift, dtype=torch.uint8, device=card)
+    x = flat[shift:].view(B, N)
+    x.copy_(torch.from_numpy(rng.integers(0, 256, (B, N), dtype=np.uint8)))
+    assert x.data_ptr() % 16 == shift % 16
+    _hold_block_stats(x)
+
+
+@pytest.mark.parametrize("B", [1, 16, 64])
+def test_block_stats_fused_batch_sizes(card, B):
+    rng = np.random.default_rng(B)
+    _hold_block_stats(torch.from_numpy(rng.integers(0, 256, (B, 65536 + 3),
+                                                    dtype=np.uint8)).to(card))
+    # the cluster size: the c <= 8 whose waves of resident clusters cost
+    # least, a wave costing 96 KiB plus a CTA's share of a row (ties to the
+    # larger c)
+    N = 65536 + 3
+    resident = np.zeros(8, np.int64)
+    c = _kernels.query("kz_block_stats_cluster", B, N, resident.ctypes.data)
+    assert 1 <= c <= 8 and resident.min() > 0
+    cost = [-(-B // resident[k - 1]) * (96 * 1024 + -(-N // k)) for k in range(1, 9)]
+    assert cost[c - 1] == min(cost) and all(x > cost[c - 1] for x in cost[c:])
+
+
+def test_block_stats_fused_two_streams(card):
+    rng = np.random.default_rng(13)
+    xs = [torch.from_numpy(rng.integers(0, hi, (16, 1 << 20), dtype=np.uint8)).to(card)
+          for hi in (256, 3)]
+    want = [block_stats._block_stats_plain(x) for x in xs]
+    streams = [torch.cuda.Stream(card) for _ in xs]
+    torch.cuda.synchronize()
+    got = []
+    for x, st in zip(xs, streams):
+        with torch.cuda.stream(st):
+            got.append(block_stats.block_stats(x))
+    torch.cuda.synchronize()
+    for (h, e), (hp, ep) in zip(got, want):
+        assert torch.equal(h, hp)
+        assert (e - ep).abs().max().item() <= 1
+
+
+def test_block_stats_counts_one_fused_launch(card):
+    x = torch.zeros(2, 4096, dtype=torch.uint8, device=card)
+    _kernels.reset_counts()
+    block_stats.block_stats(x)
+    assert _kernels.launches["block_stats"] == 1
+    assert _kernels.launches["histograms_u8"] == _kernels.launches["entropy1024"] == 1
+    # a batch the kernel refuses raises; nothing runs on the CPU instead
+    with pytest.raises(ValueError):
+        block_stats.block_stats(torch.zeros(65536, 1, dtype=torch.uint8, device=card))
+    assert sum(_kernels.plain_calls.values()) == 0
+
+
 def test_pack_lanes_kernel_matches_plain(card):
     rng = np.random.default_rng(3)
     L = 64
