@@ -27,9 +27,21 @@ Phases, each failing hard (no exception is caught):
    `jobs` it was encoded with, each path read by the launch counters; the
    device decode's launches of each run checked: one a batch of blocks
    (K4, K6), the longest block's chunk count a batch at most (K8);
-4. compress_step on the real blocks and lanes, checked against numpy and
+4. cli: the corpus, written to a temporary file, through the CLI
+   (kanzi_tpu_torch.app.main in-process) at -l 2 and -l 5 (three runs of
+   --device cuda and --device none in turns) and the first 16 MiB at
+   -e ANS1 -t NONE and -e RANGE -t LZ, each at -j 4 -v 4 (the block
+   listener attached): streams equal across devices, outputs equal to the
+   input, one block line a block, equal with times masked, the encode
+   launching once a batch and the decode at most as often as without a
+   listener; the stream API (compress_stream/decompress_stream, 1 MiB
+   chunks) on the card; `python3 -m kanzi_tpu_torch` in a subprocess with
+   no --device (the same stream) and with no visible card (an error, no
+   output file); the host striping (compress_multiproc over 4 processes,
+   the multihost launcher over 2 ranks) equal to compress(device=None);
+5. compress_step on the real blocks and lanes, checked against numpy and
    the integer entropy reference, its block statistics one fused launch;
-5. bwt_fpaq: the device BWT and FPAQ entry points on the corpus's 16
+6. bwt_fpaq: the device BWT and FPAQ entry points on the corpus's 16
    blocks of 4 MiB: bwt_forward_device (K9) on each and on a period-2
    block, byte-identical to the host BWT transform; bwt_inverse_device
    (K10) on the blocks' textbook BWTs, decoding to the blocks;
@@ -38,7 +50,7 @@ Phases, each failing hard (no exception is caught):
    C++ time of the same work (K9 also per block, with its rounds and the
    suffixes each round sorted; K10 also at the doubling rounds around its
    wrapper's rule; K11 also in cycles a bit);
-6. a profile of the level 2, ANS1 and RANGE device paths: the device's
+7. a profile of the level 2, ANS1 and RANGE device paths: the device's
    busy share (torch.profiler) and the host functions that take the time
    (cProfile).
 
@@ -51,6 +63,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -727,6 +740,213 @@ def run_path(torch, kt, K, label, data, reps, kw, kernels, decode_limits) -> dic
     return counts
 
 
+def block_lines(err: str) -> list:
+    """The InfoPrinter's block lines of one CLI run, times masked."""
+    return [re.sub(r"\d+ ms", "N ms", ln) for ln in err.splitlines()
+            if re.match(r"Block \d+: ", ln)]
+
+
+def cli_run(K, cli_main, argv) -> tuple:
+    """One in-process run of the CLI with stderr captured: (seconds, the
+    launches it made, stderr). Fails unless it exits with 0."""
+    import contextlib
+    import io
+
+    before = dict(K.launches)
+    err = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    dt = time.perf_counter() - t
+    check(rc == 0, f"cli {argv}: exit code {rc}: {err.getvalue()[-800:]}")
+    return dt, {k: K.launches[k] - before[k] for k in K.KERNELS}, err.getvalue()
+
+
+def cli_path(K, cli_main, tmp, label, src, data, reps, flags, kernels, nblocks,
+             dec_limit) -> dict:
+    """One CLI path, `reps` runs of --device cuda and --device none in turns,
+    each a compress and a decompress at -j 4 -v 4 (the block listener
+    attached): streams equal, outputs equal to the input, the block lines
+    equal with their times masked and one a block, the encode launching
+    its kernel once a batch and the decode at most `dec_limit` times.
+    Returns the medians' inputs (MB/s of each run) and the device runs'
+    launches."""
+    enc_k, dec_k = kernels
+    nbatches = -(-nblocks // 4)
+    runs = {k: [] for k in ("device encode", "device decode", "host C++ encode",
+                            "host C++ decode")}
+    per_run = []
+    for _ in range(reps):
+        for device, name in (("cuda", "device"), ("none", "host C++")):
+            knz = os.path.join(tmp, f"{label}.{device}.knz")
+            out = os.path.join(tmp, f"{label}.{device}.out")
+            dt, enc, err = cli_run(K, cli_main, ["-c", "-i", src, "-o", knz, *flags,
+                                                 "-j", "4", "-x32", "-v", "4", "-f",
+                                                 f"--device={device}"])
+            runs[f"{name} encode"].append(len(data) / dt / 1e6)
+            dt, dec, err_d = cli_run(K, cli_main, ["-d", "-i", knz, "-o", out, "-j", "4",
+                                                   "-v", "4", "-f", f"--device={device}"])
+            runs[f"{name} decode"].append(len(data) / dt / 1e6)
+            with open(out, "rb") as fh:
+                check(fh.read() == data, f"cli {label}: {name} decode != input")
+            with open(knz, "rb") as fh:
+                blob = fh.read()
+            lines = (block_lines(err), block_lines(err_d))
+            check(len(lines[0]) == len(lines[1]) == nblocks,
+                  f"cli {label}: {len(lines[0])}, {len(lines[1])} block lines, "
+                  f"not one a block ({nblocks})")
+            if device == "cuda":
+                dev = (blob, lines)
+                per_run.append({enc_k: enc[enc_k], dec_k: dec[dec_k]})
+                check(enc[enc_k] == nbatches, f"cli {label}: {enc[enc_k]} {enc_k} "
+                      f"launches in one encode, not one a batch ({nbatches})")
+                check(0 < dec[dec_k] <= dec_limit, f"cli {label}: {dec[dec_k]} {dec_k} "
+                      f"launches in one decode with the listener, at most {dec_limit}")
+            else:
+                check(blob == dev[0], f"cli {label}: --device cuda stream != --device none")
+                check(lines == dev[1], f"cli {label}: block lines differ across devices")
+    check(sum(K.plain_calls.values()) == 0, f"cli {label}: a plain version ran")
+    print(f"cli {label} ({' '.join(flags)} -j 4 -x32 -v 4): {len(data)} -> "
+          f"{len(dev[0])} bytes, {nblocks} block lines each way; device launches "
+          f"per run {per_run} (encode: one a batch of 4; decode at most {dec_limit})",
+          flush=True)
+    for k, v in runs.items():
+        print(f"  {k}: median {statistics.median(v)} MB/s, runs {v}", flush=True)
+    return {"runs": runs, "launches": per_run, "stream": dev[0]}
+
+
+def cli_phase(torch, kt, K, corpus: bytes, short: bytes, range_chunks: int) -> dict:
+    """The CLI (kanzi_tpu_torch.app.main in-process, then `python3 -m
+    kanzi_tpu_torch` in a subprocess), the stream API and the host
+    striping, on the corpus written to a temporary file. Returns the
+    launches of the device runs made in this process."""
+    import io
+    import shutil
+    import tempfile
+
+    from kanzi_tpu_torch.app import main as cli_main
+    from kanzi_tpu_torch.parallel import (compress_multiproc, decompress_multiproc,
+                                          multihost)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        src, src16 = os.path.join(tmp, "corpus.bin"), os.path.join(tmp, "short.bin")
+        for path, data in ((src, corpus), (src16, short)):
+            with open(path, "wb") as fh:
+                fh.write(data)
+        K.reset_counts()
+        batches = CORPUS // BLOCK // 4
+        b = ["-b", str(BLOCK)]   # the levels' own block size (4 MiB)
+        paths = {
+            "level 2": cli_path(K, cli_main, tmp, "l2", src, corpus, SLICE_REPS,
+                                ["-l", "2", *b], ("pack_lanes", "decode_lanes"),
+                                CORPUS // BLOCK, batches),
+            "level 5": cli_path(K, cli_main, tmp, "l5", src, corpus, SLICE_REPS,
+                                ["-l", "5", *b], ("ans_encode", "ans_decode"),
+                                CORPUS // BLOCK, batches),
+            "ANS1": cli_path(K, cli_main, tmp, "ans1", src16, short, 1,
+                             ["-e", "ANS1", "-t", "NONE", *b],
+                             ("ans_encode", "ans_decode"), SHORT // BLOCK, 1),
+            "RANGE": cli_path(K, cli_main, tmp, "range", src16, short, 1,
+                              ["-e", "RANGE", "-t", "LZ", *b],
+                              ("range_encode", "range_decode"), SHORT // BLOCK,
+                              range_chunks)}
+
+        # the stream API on the card, 1 MiB chunks through file-like objects;
+        # compress() writes the input size into the header and the stream
+        # API does not, so the stream is held to the host C++ stream API's
+        before = dict(K.launches)
+        t = time.perf_counter()
+        sink = io.BytesIO()
+        check(kt.compress_stream(io.BytesIO(corpus), sink, level=2, block_size=BLOCK,
+                                 jobs=4, chunk_size=MIB) == len(corpus),
+              "compress_stream: count")
+        t_enc = time.perf_counter() - t
+        host = io.BytesIO()
+        kt.compress_stream(io.BytesIO(corpus), host, level=2, block_size=BLOCK, jobs=4,
+                           chunk_size=MIB, device=None)
+        check(sink.getvalue() == host.getvalue(),
+              "compress_stream: device stream != host C++ stream")
+        back = io.BytesIO()
+        t = time.perf_counter()
+        check(kt.decompress_stream(io.BytesIO(sink.getvalue()), back, jobs=4,
+                                   chunk_size=MIB) == len(corpus), "decompress_stream: count")
+        t_dec = time.perf_counter() - t
+        check(back.getvalue() == corpus, "decompress_stream != input")
+        check(kt.decompress(sink.getvalue(), jobs=4, device=None) == corpus,
+              "the stream API's stream does not decode on the host C++ path")
+        stream_launches = {k: K.launches[k] - before[k] for k in ("pack_lanes", "decode_lanes")}
+        check(stream_launches["pack_lanes"] == batches
+              and 0 < stream_launches["decode_lanes"] <= batches,
+              f"stream API launches {stream_launches}")
+        print(f"stream API, level 2, jobs=4, 1 MiB chunks: encode "
+              f"{len(corpus) / t_enc / 1e6} MB/s, decode {len(corpus) / t_dec / 1e6} "
+              f"MB/s, launches {stream_launches}", flush=True)
+        launches = dict(K.launches)
+        check(sum(K.plain_calls.values()) == 0, "cli phase: a plain version ran")
+
+        # `python3 -m kanzi_tpu_torch` with no --device: the card by default,
+        # and without a visible card an error and no output file
+        env = dict(os.environ, PYTHONPATH=HERE)
+        sub = os.path.join(tmp, "sub.knz")
+        argv = [sys.executable, "-m", "kanzi_tpu_torch", "-c", "-i", src, "-o", sub,
+                "-l", "2", "-b", str(BLOCK), "-j", "4", "-x32", "-f"]
+        t = time.perf_counter()
+        res = subprocess.run(argv, cwd=HERE, env=env, capture_output=True, text=True,
+                             timeout=300)
+        t_sub = time.perf_counter() - t
+        check(res.returncode == 0, f"python3 -m kanzi_tpu_torch: {res.stderr[-800:]}")
+        with open(sub, "rb") as fh:
+            check(fh.read() == paths["level 2"]["stream"],
+                  "python3 -m kanzi_tpu_torch stream != the in-process level 2 stream")
+        os.remove(sub)
+        res = subprocess.run(argv, cwd=HERE, env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                             capture_output=True, text=True, timeout=300)
+        check(res.returncode != 0 and "No CUDA device" in res.stderr,
+              f"no visible card: exit code {res.returncode}, {res.stderr[-400:]}")
+        check(not os.path.exists(sub), "no visible card: an output file was left")
+        print(f"python3 -m kanzi_tpu_torch -l 2 (no --device): {t_sub:.3f} s with "
+              f"its start, stream equal; with CUDA_VISIBLE_DEVICES='': exit code "
+              f"{res.returncode}, no output: {res.stderr.strip()}", flush=True)
+
+        # the host striping on the first 16 MiB (4 blocks of 4 MiB)
+        cfg = dict(transform="DNA+LZ", entropy="HUFFMAN", block_size=BLOCK, checksum=32)
+        want = kt.compress(short, device=None, **cfg)
+        t = time.perf_counter()
+        check(compress_multiproc(short, procs=4, **cfg) == want,
+              "compress_multiproc != compress(device=None)")
+        check(decompress_multiproc(want, procs=4) == short, "decompress_multiproc != input")
+        t_mp = time.perf_counter() - t
+        mh = os.path.join(tmp, "mh.knz")
+        margs = [sys.executable, "-m", "kanzi_tpu_torch.parallel.multihost", "-i", src16,
+                 "-o", mh, "--transform", "DNA+LZ", "--entropy", "HUFFMAN",
+                 "--block-size", str(BLOCK), "--checksum", "32"]
+        t = time.perf_counter()
+        ranks = [subprocess.Popen(margs, cwd=HERE, env=dict(env, KANZI_RANK=str(r),
+                                                            KANZI_WORLD="2"))
+                 for r in range(2)]
+        codes = [p.wait(timeout=300) for p in ranks]
+        check(codes == [0, 0], f"multihost ranks: exit codes {codes}")
+        check(subprocess.run(margs + ["--assemble", "--world", "2"], cwd=HERE, env=env,
+                             timeout=300).returncode == 0, "multihost --assemble failed")
+        with open(mh, "rb") as fh:
+            check(fh.read() == want, "multihost stream != compress(device=None)")
+        check(multihost.decompress_multihost(want, world=2) == short,
+              "decompress_multihost != input")
+        t_mh = time.perf_counter() - t
+        print(f"host striping, {len(short) >> 20} MiB ({cfg}): compress_multiproc + "
+              f"decompress_multiproc (4 processes) {t_mp:.3f} s; multihost launcher "
+              f"(2 ranks + assemble) + decompress_multihost {t_mh:.3f} s; streams "
+              f"equal to compress(device=None)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label in ("level 2", "level 5"):
+        r = paths[label]["runs"]
+        print(f"cli MB/s, {label} (medians of {SLICE_REPS} runs in turns): "
+              + ", ".join(f"{k} {statistics.median(v)}" for k, v in r.items()), flush=True)
+    return launches
+
+
 def profile_path(torch, kt, name: str, data: bytes, kw: dict) -> None:
     """One device compress and decompress of a slice path under
     torch.profiler (the device's busy time against the wall time) and one
@@ -975,7 +1195,14 @@ def main() -> int:
           f"{ans_device.counts['host_route']} blocks", flush=True)
     phase_s["slice"] = time.perf_counter() - t_phase
 
-    # -- 4. compress_step on the real blocks and lanes ---------------------
+    # -- 4. the CLI, the stream API and the host striping ------------------
+    print("== cli", flush=True)
+    t_phase = time.perf_counter()
+    for k, v in cli_phase(torch, kt, K, corpus, short, range_chunks).items():
+        main_launches[k] += v
+    phase_s["cli"] = time.perf_counter() - t_phase
+
+    # -- 5. compress_step on the real blocks and lanes ---------------------
     print("== compress_step", flush=True)
     t_phase = time.perf_counter()
     handles = engine.dispatch_many(posts4)
@@ -1009,14 +1236,14 @@ def main() -> int:
 
     phase_s["compress_step"] = time.perf_counter() - t_phase
 
-    # -- 5. the device BWT and FPAQ entry points ---------------------------
+    # -- 6. the device BWT and FPAQ entry points ---------------------------
     print("== bwt_fpaq", flush=True)
     t_phase = time.perf_counter()
     for k, v in bwt_fpaq(torch, K, native, raw, cuda, held, results).items():
         main_launches[k] += v
     phase_s["bwt_fpaq"] = time.perf_counter() - t_phase
 
-    # -- 6. where the time of the device paths goes -----------------------
+    # -- 7. where the time of the device paths goes -----------------------
     print("== profile", flush=True)
     t_phase = time.perf_counter()
     profile_path(torch, kt, "level 2", corpus, dict(level=2, jobs=4))

@@ -7,16 +7,22 @@ Streams are byte-identical to kanzi_tpu's (KANZ bitstream v6). The layers:
                                carry each kernel's plain PyTorch version
 - `kanzi_tpu_torch.entropy`  — entropy registry; the device Huffman, rANS
                                (ANS0/ANS1) and range engines
-- `kanzi_tpu_torch.parallel` — the fused device compress step
+- `kanzi_tpu_torch.parallel` — the fused device compress step; the host
+                               multi-process and multi-host striping
 - `kanzi_tpu_torch.native`   — C++ host runtime for the bit-serial loops
                                (transforms, table prep, frame splice)
 - `kanzi_tpu_torch.kio`      — the KANZ v6 stream container (Writer/Reader)
+- `kanzi_tpu_torch.app`      — kanzi-compatible CLI (`python -m
+                               kanzi_tpu_torch`), with `--device`
 
-Every entry point takes `device`: "cuda" (the default) runs the kernels and
-raises without a card, "cpu" runs their plain PyTorch versions, None runs
-the host C++ engine throughout. The entropy stages of levels 2, 3 (HUFFMAN)
-and 5 (ANS0), and the ANS1 and RANGE codecs, run on the device; the other
-codecs run on the host C++ engine on every path.
+Every entry point (compress, decompress, compress_stream,
+decompress_stream, Writer, Reader, the CLI's --device) takes `device`:
+"cuda" (the default) runs the kernels and raises without a card, "cpu"
+runs their plain PyTorch versions, None runs the host C++ engine
+throughout. The host striping (parallel.multiproc, parallel.multihost)
+runs the host C++ engine only, as in kanzi_tpu. The entropy stages of
+levels 2, 3 (HUFFMAN) and 5 (ANS0), and the ANS1 and RANGE codecs, run on
+the device; the other codecs run on the host C++ engine on every path.
 
     >>> import kanzi_tpu_torch
     >>> blob = kanzi_tpu_torch.compress(data, level=5)
@@ -82,6 +88,18 @@ def block_size_for_level(level: int) -> int:
     return DEFAULT_BLOCK_SIZE
 
 
+def _codec(level, transform, entropy, block_size) -> tuple[str, str, int]:
+    """(transform, entropy, block size) of a level preset, or of the names
+    given, with the defaults for what is not."""
+    if level is not None:
+        if not 0 <= level <= 9:
+            raise KanziError(f"Invalid compression level: {level}")
+        transform, entropy = LEVEL_PRESETS[level]
+        if block_size is None:
+            block_size = block_size_for_level(level)
+    return transform or "NONE", entropy or "NONE", block_size or DEFAULT_BLOCK_SIZE
+
+
 def compress(data, level: int | None = None, transform: str | None = None,
              entropy: str | None = None, block_size: int | None = None,
              jobs: int = 1, checksum: int = 0, headerless: bool = False,
@@ -91,15 +109,7 @@ def compress(data, level: int | None = None, transform: str | None = None,
     ``skip`` enables incompressible-block detection (the CLI's ``-s``:
     magic-typed or high-entropy blocks are stored as copies — reference
     BlockCompressor ``skipBlocks``)."""
-    if level is not None:
-        if not 0 <= level <= 9:
-            raise KanziError(f"Invalid compression level: {level}")
-        transform, entropy = LEVEL_PRESETS[level]
-        if block_size is None:
-            block_size = block_size_for_level(level)
-    transform = transform or "NONE"
-    entropy = entropy or "NONE"
-    block_size = block_size or DEFAULT_BLOCK_SIZE
+    transform, entropy, block_size = _codec(level, transform, entropy, block_size)
     w = Writer(None, transform=transform, entropy=entropy, block_size=block_size,
                jobs=jobs, checksum=checksum, file_size=len(data),
                headerless=headerless,
@@ -121,6 +131,51 @@ def decompress(data, jobs: int = 1, headerless: bool = False,
         return r.read_all()
     finally:
         r.close()
+
+
+def compress_stream(src, dst, level: int | None = None,
+                    transform: str | None = None, entropy: str | None = None,
+                    block_size: int | None = None, jobs: int = 1,
+                    checksum: int = 0, chunk_size: int = 1 << 20,
+                    device="cuda") -> int:
+    """Constant-memory streaming compression: read `src` (file-like) in
+    chunks, write a KANZ v6 stream to `dst` (file-like). Returns the number
+    of input bytes consumed. Library-level mirror of the reference's
+    NewWriter + io.Copy idiom (v2/io/CompressedStream.go:166-991); the CLI
+    uses the same Writer directly. `device` is the Writer's."""
+    transform, entropy, block_size = _codec(level, transform, entropy, block_size)
+    w = Writer(dst, transform=transform, entropy=entropy, block_size=block_size,
+               jobs=jobs, checksum=checksum, device=device)
+    total = 0
+    try:
+        while True:
+            chunk = src.read(chunk_size)
+            if not chunk:
+                break
+            w.write(chunk)
+            total += len(chunk)
+    finally:
+        w.close()
+    return total
+
+
+def decompress_stream(src, dst, jobs: int = 1, chunk_size: int = 1 << 20,
+                      device="cuda") -> int:
+    """Constant-memory streaming decompression from `src` (file-like KANZ
+    stream) into `dst` (file-like). Returns the number of bytes written.
+    `device` is the Reader's."""
+    r = Reader(src, jobs=jobs, device=device)
+    total = 0
+    try:
+        while True:
+            out = r.read(chunk_size)
+            if not out:
+                break
+            dst.write(out)
+            total += len(out)
+    finally:
+        r.close()
+    return total
 
 
 def entry(device="cuda"):

@@ -11,7 +11,8 @@ else.
 
 Every launch API returns ``cudaGetLastError()``; ``launch`` raises when it
 is not 0 and counts the launch. ``launches`` holds one plain integer per
-kernel, ``plain_calls`` one per plain version.
+kernel, ``plain_calls`` one per plain version; both are counted under a
+lock, since Writers and Readers on several threads launch at once.
 """
 
 from __future__ import annotations
@@ -206,8 +207,15 @@ def launch(kernel: str | tuple, cfunc: str, device: torch.device, *args) -> None
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{cfunc}: CUDA launch failed with error {rc}")
-    for k in (kernel,) if isinstance(kernel, str) else kernel:
-        launches[k] += 1
+    with _lock:  # device Writers and Readers on several threads launch at once
+        for k in (kernel,) if isinstance(kernel, str) else kernel:
+            launches[k] += 1
+
+
+def count_plain(kernel: str) -> None:
+    """Count one call of `kernel`'s plain version."""
+    with _lock:
+        plain_calls[kernel] += 1
 
 
 def query(cfunc: str, *args):

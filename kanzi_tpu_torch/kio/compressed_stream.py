@@ -356,13 +356,10 @@ class Writer:
 
     # -- events ----------------------------------------------------------
     def add_listener(self, bl) -> bool:
+        """Attach a block-event listener. A device Writer keeps its entropy
+        stage on the device and sends the events from its batches."""
         if bl is None:
             return False
-        if self._dev_engine is not None:
-            # block events come from the per-block host path only; taking
-            # it would move the entropy stage off the device
-            raise KanziError("listeners need device=None on the Writer",
-                             ERR_INVALID_PARAM)
         self.listeners.append(bl)
         return True
 
@@ -501,11 +498,11 @@ class Writer:
         batch = memoryview(batch)
         blocks = [batch[i:i + self.block_size]
                   for i in range(0, len(batch), self.block_size)]
+        if self._use_native and self._dev_engine is not None:
+            self._process_batch_device(blocks)
+            self._block_id += len(blocks)
+            return
         if self._use_native and not self.listeners:
-            if self._dev_engine is not None:
-                self._process_batch_device(blocks)
-                self._block_id += len(blocks)
-                return
             # fully-native path: one encode + one splice call per block;
             # encodes run concurrently (ctypes releases the GIL — reference
             # P1, one task per block) and frames splice in block order (P2)
@@ -529,22 +526,26 @@ class Writer:
             offset = self.written_bytes
             self._write_frame(payload, bits)
             if self.listeners:
-                # block offset + skip flags (reference EVT_BLOCK_INFO,
-                # v2/io/CompressedStream.go:922-931); flags sit in the mode
-                # byte (or the byte after it when > 4 transforms)
-                mode = payload[0]
-                if mode & COPY_BLOCK_MASK:
-                    flags = 0xFF
-                elif mode & TRANSFORMS_MASK:
-                    flags = payload[1]
-                else:
-                    flags = ((mode << 4) | 0x0F) & 0xFF
-                _notify(self.listeners, Event(
-                    EventType.BLOCK_INFO, self._block_id + i + 1,
-                    (bits + 7) >> 3, 0, HashType.NONE, time.time(),
-                    msg=f'{{ "type":"BLOCK_INFO", "id":{self._block_id + i + 1},'
-                        f' "offset":{offset}, "skipFlags":"{flags:08b}" }}'))
+                self._block_info(self._block_id + i + 1, payload, bits, offset)
         self._block_id += len(blocks)
+
+    def _block_info(self, block_id: int, payload, bits: int, offset: int) -> None:
+        """The BLOCK_INFO event of a frame just written at byte `offset`:
+        block offset + skip flags (reference EVT_BLOCK_INFO,
+        v2/io/CompressedStream.go:922-931); flags sit in the mode byte (or
+        the byte after it when > 4 transforms)."""
+        mode = int(payload[0])
+        if mode & COPY_BLOCK_MASK:
+            flags = 0xFF
+        elif mode & TRANSFORMS_MASK:
+            flags = int(payload[1])
+        else:
+            flags = ((mode << 4) | 0x0F) & 0xFF
+        _notify(self.listeners, Event(
+            EventType.BLOCK_INFO, block_id, (bits + 7) >> 3, 0, HashType.NONE,
+            time.time(),
+            msg=f'{{ "type":"BLOCK_INFO", "id":{block_id},'
+                f' "offset":{offset}, "skipFlags":"{flags:08b}" }}'))
 
     def _process_batch_device(self, blocks) -> None:
         """Heterogeneous batch: host C++ transforms + the device entropy
@@ -559,18 +560,33 @@ class Writer:
         scratch, on the pool, and the frames splice in block order here
         (the device-era analogue of the reference's processedBlockID
         ordering, v2/io/CompressedStream.go:934-949).
+
+        Listeners get compress_block_payload's events, sizes and hashes:
+        the transform events and BEFORE_ENTROPY from phase 1 and
+        AFTER_ENTROPY from phase 2, on the pool's threads, and BLOCK_INFO
+        in block order as each frame splices.
         """
         engine = self._dev_engine
         self._size_slots(len(blocks))
         run = self._pool.map if self._pool is not None and len(blocks) > 1 else map
+        listeners = tuple(self.listeners)
+        hash_type = HashType(self.checksum_bits // 32)
+        first_id = self._block_id + 1
 
         def transform(slot):
             data = np.frombuffer(blocks[slot], dtype=np.uint8)
             post_buf = self._slot_buf(self._dev_posts, slot, 2 * len(data) + 65536)
+            t0 = time.time()
             post_len, mode, extra, flags, cks, copy = native.block_transform(
                 data, self.transform_type, self.entropy_type, self.ctx,
                 self.checksum_bits, bool(self.ctx.get("skipBlocks", False)),
                 post_buf)
+            if listeners:
+                bid, t1 = first_id + slot, time.time()
+                for evt, size, t in ((EventType.BEFORE_TRANSFORM, len(data), t0),
+                                     (EventType.AFTER_TRANSFORM, post_len, t1),
+                                     (EventType.BEFORE_ENTROPY, post_len, t1)):
+                    _notify(listeners, Event(evt, bid, size, cks, hash_type, t))
             hdr = bytearray([mode])
             if extra:
                 hdr.append(flags)
@@ -579,10 +595,10 @@ class Writer:
             if self.checksum_bits:
                 hdr += cks.to_bytes(self.checksum_bits // 8, "big")
             post = post_buf[:post_len]
-            return hdr, post, None if copy else engine.prep(post)
+            return hdr, post, cks, None if copy else engine.prep(post)
 
         def assemble(args):
-            slot, (hdr, post, handle) = args
+            slot, (hdr, post, cks, handle) = args
             scratch = self._slot_buf(self._slot_scratch, slot,
                                      len(hdr) + 2 * len(post) + 65536)
             scratch[:len(hdr)] = np.frombuffer(hdr, dtype=np.uint8)
@@ -591,15 +607,22 @@ class Writer:
                 pbits = 8 * len(post)
             else:
                 pbits = engine.collect(handle, scratch, len(hdr))
+            if listeners:  # the entropy payload alone, without the frame header
+                _notify(listeners, Event(EventType.AFTER_ENTROPY, first_id + slot,
+                                         (pbits + 7) >> 3, cks, hash_type,
+                                         time.time()))
             return scratch, 8 * len(hdr) + pbits
 
         staged = list(run(transform, range(len(blocks))))
-        preps = [prep for _, _, prep in staged if prep is not None]
+        preps = [prep for *_, prep in staged if prep is not None]
         handles = iter(engine.dispatch_prepped(preps) if preps else ())
-        framed = [(hdr, post, None if prep is None else next(handles))
-                  for hdr, post, prep in staged]
-        for scratch, bits in run(assemble, enumerate(framed)):
+        framed = [(hdr, post, cks, None if prep is None else next(handles))
+                  for hdr, post, cks, prep in staged]
+        for slot, (scratch, bits) in enumerate(run(assemble, enumerate(framed))):
+            offset = self.written_bytes
             self._append_frame(scratch, bits)
+            if listeners:
+                self._block_info(first_id + slot, scratch, bits, offset)
 
     def _append_frame(self, payload: np.ndarray, bits: int) -> None:
         need = ((self._bitpos + bits) >> 3) + 64
@@ -703,9 +726,9 @@ class Reader:
 
     `device` ("cuda" by default) decodes HUFFMAN, ANS0, ANS1 and RANGE
     payloads on that device; "cpu" uses the plain PyTorch versions; None is
-    the fully native host path. With `jobs` > 1 and no listener, a device
-    stream decodes `jobs` blocks a launch (_read_batch_device); otherwise
-    block by block, through the per-block payload path.
+    the fully native host path. With `jobs` > 1, a device stream decodes
+    `jobs` blocks a launch (_read_batch_device), listeners or not; with
+    `jobs=1`, block by block, through the per-block payload path.
     """
 
     _REFILL = 1 << 20       # streaming read granularity
@@ -953,9 +976,9 @@ class Reader:
 
     def _device_batch(self) -> bool:
         """The batched device decode, `jobs` frames a launch: the stream
-        decodes on the device, with no listener (their per-block events
-        stay in order on the per-block path) and no injected bit reader."""
-        return (self._use_native and not self.listeners
+        decodes on the device, with no injected bit reader. Listeners get
+        their events from the batch (_read_batch_device)."""
+        return (self._use_native
                 and entropy_mod.decodes_on_device(self.entropy_type, self.ctx))
 
     def _read_next_block(self) -> bool:
@@ -1070,6 +1093,11 @@ class Reader:
         inverse transforms and checksums on the pool; the outputs append
         in block order. A block that fails raises as _read_next_block
         would, under its own id (the first failing block of the batch).
+        Listeners get decompress_block_payload's events: BEFORE_ENTROPY
+        (the decoder's ordered phase) in block order before the launch; the
+        other three, stamped on the pool when they happen, in block order
+        once the batch is done, so that a block's lines come in block order
+        as on the per-block path.
         Returns False once the end marker was consumed."""
         frames, more = self._read_frames()
         if not frames:
@@ -1083,6 +1111,14 @@ class Reader:
         heads = _each(run, lambda p: _parse_block_header(
             p, self.transform_type, self.entropy_type, self.block_size,
             self.checksum_bits), payloads)
+        listeners = tuple(self.listeners)
+        hash_type = HashType(self.checksum_bits // 32)
+        if listeners:
+            for (_, _, block_id), p, h in zip(frames, payloads, heads):
+                if isinstance(h, Exception):
+                    break
+                _notify(listeners, Event(EventType.BEFORE_ENTROPY, block_id,
+                                         len(p), h[5], hash_type, time.time()))
         # copy-mode blocks (entropy NONE) need no device work
         dev = [i for i, h in enumerate(heads)
                if not isinstance(h, Exception) and h[1] != entropy_mod.NONE_TYPE]
@@ -1100,18 +1136,28 @@ class Reader:
                 buf = decoded[i]
                 if isinstance(buf, Exception):
                     raise buf
-            return _verify_checksum(
-                _inverse_block(buf, t_type, skip_flags, self.ctx, pre_len),
-                self.checksum_bits, checksum1)
+            block_id, events = frames[i][2], []
+            if listeners:
+                t = time.time()
+                events += [Event(evt, block_id, pre_len, checksum1, hash_type, t)
+                           for evt in (EventType.AFTER_ENTROPY,
+                                       EventType.BEFORE_TRANSFORM)]
+            result = _inverse_block(buf, t_type, skip_flags, self.ctx, pre_len)
+            if listeners:
+                events.append(Event(EventType.AFTER_TRANSFORM, block_id, len(result),
+                                    checksum1, hash_type, time.time()))
+            return _verify_checksum(result, self.checksum_bits, checksum1), events
 
         outs = _each(run, finish, range(len(frames)))
         for (_, _, block_id), out in zip(frames, outs):
             if isinstance(out, Exception):
                 raise _block_error(block_id, out)
-            if len(out) > self.block_size:
+            for evt in out[1]:
+                _notify(listeners, evt)
+            if len(out[0]) > self.block_size:
                 raise KanziError(f"Block {block_id} incorrectly decompressed",
                                  ERR_PROCESS_BLOCK)
-        for out in outs:
+        for out, _ in outs:
             self._chunks.append(out)
             self._chunks_len += len(out)
         return more
@@ -1212,3 +1258,30 @@ class Reader:
         if self._pool is not None:
             self._pool.shutdown(wait=False)
 
+
+def frame_table(blob: bytes):
+    """Serial frame walk over a headered stream, no payload decode (the
+    reference's serialized frame reads, v2/io/CompressedStream.go:1798-1856):
+    returns ([(bit_pos, block_id), ...], reader) with the reader holding
+    the parsed header config. Shared by the multi-process and multi-host
+    decode striping (parallel/multiproc.py, parallel/multihost.py) so the
+    frame-header layout lives in one place. The reader parses headers only,
+    so it is built with device=None.
+    """
+    import io as _io
+
+    r = Reader(_io.BytesIO(blob), device=None)
+    r._read_header()
+    br = BitReader(blob)
+    br._pos = r._br._pos
+    frames = []
+    block_id = 0
+    while True:
+        lw = br.read_bits(5) + 3
+        bits = br.read_bits(lw)
+        if bits == 0:
+            break
+        block_id += 1
+        frames.append((br._pos, block_id))
+        br._pos += bits
+    return frames, r

@@ -289,11 +289,15 @@ def transform_forward(ttype: int, data, ctx: dict, max_encoded_len: int) -> tupl
     res = lib.kz_transform_forward(ttype, src.ctypes.data, len(src),
                                    dst.ctypes.data, cap, ctypes.byref(c),
                                    ctypes.byref(out_len))
+    # the data type a transform detected holds for the rest of the chain
+    # even when it vetoes itself, as in the one-call block encode (and the
+    # reference's shared ctx map): a vetoing alias codec's detection keeps
+    # LZ off small-alphabet data
+    ctx["dataType"] = int(c.dataType)
     if res == 1:
         raise NativeSkip()
     if res != 0:
         raise RuntimeError(f"native transform forward failed (ttype={ttype}, err={res})")
-    ctx["dataType"] = int(c.dataType)
     return dst[: out_len.value].tobytes(), ctx
 
 

@@ -40,7 +40,7 @@ def _to_int_bits(x: torch.Tensor, bits: int, dtype) -> torch.Tensor:
 
 
 def _encode_chunks_plain(syms, ngroups, tables):
-    K.plain_calls["ans_encode"] += 1
+    K.count_plain("ans_encode")
     B, G, _ = syms.shape
     dev = syms.device
     W = 4 * G
@@ -118,7 +118,7 @@ def encode_chunks(syms: torch.Tensor, ngroups: torch.Tensor,
 
 def _decode_chunks_plain(bufs, nbytes, states0, f2s, dtabs, ngroups, lr,
                          order, glen):
-    K.plain_calls["ans_decode"] += 1
+    K.count_plain("ans_decode")
     B, S = bufs.shape
     F = f2s.shape[1]
     T = dtabs.shape[2]

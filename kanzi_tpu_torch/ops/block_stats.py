@@ -30,7 +30,7 @@ def _check_blocks(blocks: torch.Tensor) -> str:
 
 
 def _histograms_plain(blocks: torch.Tensor) -> torch.Tensor:
-    K.plain_calls["histograms_u8"] += 1
+    K.count_plain("histograms_u8")
     B = blocks.shape[0]
     out = torch.zeros(B, 256, dtype=torch.int64, device=blocks.device)
     out.scatter_add_(1, blocks.long(), torch.ones_like(blocks, dtype=torch.int64))
@@ -54,7 +54,7 @@ def histograms_u8(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def _entropy_plain(histos: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    K.plain_calls["entropy1024"] += 1
+    K.count_plain("entropy1024")
     h = histos.to(torch.float32)
     n = torch.clamp(lengths.to(torch.float32), min=1.0)
     p = torch.where(h > 0, h / n[:, None], torch.ones_like(h))
@@ -89,7 +89,7 @@ def entropy1024(histos: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def _block_stats_plain(blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    K.plain_calls["block_stats"] += 1
+    K.count_plain("block_stats")
     h = _histograms_plain(blocks)
     lengths = torch.full((blocks.shape[0],), blocks.shape[1], dtype=torch.int32,
                          device=blocks.device)

@@ -49,7 +49,7 @@ def build_lf(last_cols: torch.Tensor):
 
 
 def _lf_walk_plain(last_cols, lf, starts, nsteps):
-    K.plain_calls["lf_walk"] += 1
+    K.count_plain("lf_walk")
     N = last_cols.shape[1]
     K.check_index(lf, "lf", N)
     lf64 = lf.long()

@@ -140,7 +140,7 @@ def _fpaq_coder_plain(data, nbytes, bit_probs):
 def _encode_blocks_plain(data, nbytes):
     """The model, then the coder over its probabilities, as K11 splits
     them."""
-    K.plain_calls["fpaq_encode"] += 1
+    K.count_plain("fpaq_encode")
     return _fpaq_coder_plain(data, nbytes, _fpaq_model_plain(data, nbytes))
 
 

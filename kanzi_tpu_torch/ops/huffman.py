@@ -38,7 +38,7 @@ def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_lanes_plain(syms, lane_len, table_idx, tables):
-    K.plain_calls["pack_lanes"] += 1
+    K.count_plain("pack_lanes")
     L, frag = syms.shape
     nwords = _nwords(frag)
     ctab = tables[table_idx.long()].long()                    # (L, 256)
@@ -118,7 +118,7 @@ def words_to_bytes(words) -> bytes:
 
 
 def _decode_lanes_plain(lanes, table_idx, dtables):
-    K.plain_calls["decode_lanes"] += 1
+    K.count_plain("decode_lanes")
     L, S = lanes.shape
     dev = lanes.device
     # the 12-bit peek at every bit position of a row, computed up front;

@@ -56,7 +56,7 @@ def _renorm(k, low, rng, active):
 
 
 def _encode_chunks_plain(syms, nvalid, tables, shifts):
-    K.plain_calls["range_encode"] += 1
+    K.count_plain("range_encode")
     B, N = syms.shape
     dev = syms.device
     k = _Consts(dev)
@@ -137,7 +137,7 @@ def encode_chunks(syms: torch.Tensor, nvalid: torch.Tensor,
 
 
 def _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen):
-    K.plain_calls["range_decode"] += 1
+    K.count_plain("range_decode")
     B, S = bufs.shape
     dev = bufs.device
     k = _Consts(dev)

@@ -31,7 +31,7 @@ def _bucket(n: int) -> int:
 
 
 def _prefix_double_plain(padded: torch.Tensor, n_true: int):
-    K.plain_calls["prefix_double"] += 1
+    K.count_plain("prefix_double")
     size = padded.shape[0]
     dev = padded.device
     idx = torch.arange(size, dtype=torch.int64, device=dev)

@@ -1,4 +1,4 @@
-"""The fused device compress step on one device.
+"""The fused device compress step on one device, and the host striping.
 
 The single-device form of kanzi_tpu/parallel/__init__.py: compress_step
 (:79-107), which runs per block the histogram + incompressibility estimate
@@ -8,6 +8,10 @@ launch of the fused kernel (ops.block_stats.block_stats, the counterpart of
 kanzi_tpu's block_stats_pallas), the lane pack another. On one card the psum
 is a plain sum on the device. Sharding across cards is a later slice
 (ROADMAP.md).
+
+compress_multiproc/decompress_multiproc (parallel.multiproc) and
+parallel.multihost stripe blocks over processes and hosts on the host C++
+engine, as kanzi_tpu's do; they take no device.
 """
 
 from __future__ import annotations
@@ -15,9 +19,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _kernels
-from .ops import block_stats, huffman as ops_huffman
-from .ops.state import to_port_state
+from .. import _kernels
+from ..ops import block_stats, huffman as ops_huffman
+from ..ops.state import to_port_state
+
+
+def compress_multiproc(*args, **kwargs):
+    """Multi-process block compression (see parallel.multiproc)."""
+    from .multiproc import compress_multiproc as _impl
+    return _impl(*args, **kwargs)
+
+
+def decompress_multiproc(*args, **kwargs):
+    """Multi-process block decompression (see parallel.multiproc)."""
+    from .multiproc import decompress_multiproc as _impl
+    return _impl(*args, **kwargs)
 
 
 def compress_step(blocks, lane_syms, lane_len, table_idx, tables,

@@ -733,3 +733,69 @@ def test_fpaq_kernel_ring_halves(card):
     assert _kernels.launches["fpaq_encode"] == 1
     want = ops_fb.encode_blocks(torch.from_numpy(data), torch.from_numpy(lengths))
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_cli_on_card_with_block_lines(card, tmp_path, capsys):
+    """The CLI at -l 2 -j 4 -v 4 --device cuda: the stream equals --device
+    none's, one block line a block, and the listener keeps the launches at
+    one a batch of four blocks (K3 on encode, K4 on decode)."""
+    from kanzi_tpu_torch.app import main
+
+    rng = np.random.default_rng(21)
+    src = tmp_path / "in.bin"
+    text = _text(1 << 16) * ((1 << 19) // len(_text(1 << 16)) + 1)
+    src.write_bytes(text[:1 << 19] + rng.integers(0, 4, 1 << 19, dtype=np.uint8).tobytes())
+    outs = {}
+    for device in ("cuda", "none"):
+        knz, back = tmp_path / f"{device}.knz", tmp_path / f"{device}.out"
+        _kernels.reset_counts()
+        assert main(["-c", "-i", str(src), "-o", str(knz), "-l", "2", "-j", "4",
+                     "-b", "256k", "-v", "4", "-f", f"--device={device}"]) == 0
+        enc = dict(_kernels.launches)
+        assert main(["-d", "-i", str(knz), "-o", str(back), "-j", "4", "-v", "4",
+                     "-f", f"--device={device}"]) == 0
+        dec = {k: _kernels.launches[k] - enc[k] for k in enc}
+        err = capsys.readouterr().err
+        lines = [ln for ln in err.splitlines() if ln.startswith("Block ") and "=>" in ln]
+        assert [ln.split(":")[0] for ln in lines] == [f"Block {i}" for i in (1, 2, 3, 4)] * 2
+        assert back.read_bytes() == src.read_bytes()
+        outs[device] = knz.read_bytes()
+        if device == "cuda":
+            assert enc["pack_lanes"] == 1 and dec["decode_lanes"] == 1, (enc, dec)
+    assert outs["cuda"] == outs["none"]
+    assert sum(_kernels.plain_calls.values()) == 0
+
+
+@pytest.mark.parametrize("entropy", ["HUFFMAN", "ANS0", "ANS1", "RANGE"])
+def test_device_events_on_card_match_cpu(card, entropy):
+    """The device Writer's and Reader's events on the card equal the
+    device="cpu" events (type, block id, size, hash; times excluded)."""
+    from kanzi_tpu_torch.kio import Reader, Writer
+
+    class Recorder:
+        def __init__(self):
+            self.events = []
+
+        def process_event(self, evt):
+            self.events.append((int(evt.type), evt.block_id, evt.size, evt.hash,
+                                int(evt.hash_type), evt.msg))
+
+    rng = np.random.default_rng(22)
+    text = _text(1 << 16) * 3   # the text is shorter than two blocks
+    data = (text[:2 << 16] + rng.integers(0, 256, 1 << 16, dtype=np.uint8).tobytes()
+            + _text(5000))
+    got = {}
+    for device in ("cuda", "cpu"):
+        rec, drec = Recorder(), Recorder()
+        w = Writer(None, transform="LZ", entropy=entropy, block_size=1 << 16, jobs=4,
+                   checksum=32, file_size=len(data), ctx={"skipBlocks": True},
+                   device=device)
+        w.add_listener(rec)
+        w.write(data)
+        w.close()
+        r = Reader(w.getvalue(), jobs=4, device=device)
+        r.add_listener(drec)
+        assert r.read_all() == data
+        key = lambda e: e[1]  # noqa: E731 (per block, in order)
+        got[device] = (w.getvalue(), sorted(rec.events, key=key), drec.events)
+    assert got["cuda"] == got["cpu"]

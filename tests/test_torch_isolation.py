@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of kanzi_tpu_torch, and not
 chip_smoke.py, imports jax or kanzi_tpu, and the port imports and
-round-trips with both blocked."""
+round-trips with both blocked: the library, the CLI (`python -m
+kanzi_tpu_torch`) and the multi-process striping."""
 
 import ast
 import os
@@ -71,6 +72,31 @@ for level in (2, 3):
     assert kt.decompress(blob, device="cpu") == data
 assert _kernels.plain_calls["pack_lanes"] > 0
 assert _kernels.plain_calls["decode_lanes"] > 0
+
+# the CLI, as `python -m kanzi_tpu_torch`, on the host C++ path
+import os, runpy, tempfile
+from unittest import mock
+with tempfile.TemporaryDirectory() as tmp:
+    src = os.path.join(tmp, "in.bin")
+    with open(src, "wb") as fh:
+        fh.write(data)
+    for argv in (["-c", "-i", src, "-o", src + ".knz", "-l", "2", "-j", "2"],
+                 ["-d", "-i", src + ".knz", "-o", src + ".out", "-j", "2"]):
+        with mock.patch.object(sys, "argv", ["kanzi_tpu_torch", *argv, "--device", "none"]):
+            try:
+                runpy.run_module("kanzi_tpu_torch", run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, e.code
+    with open(src + ".out", "rb") as fh:
+        assert fh.read() == data
+    with open(src + ".knz", "rb") as fh:
+        assert fh.read() == kt.compress(data, level=2, device=None)
+
+# the host multi-process striping (spawned workers import the port alone)
+from kanzi_tpu_torch.parallel import compress_multiproc
+assert compress_multiproc(data, transform="LZ", entropy="HUFFMAN", block_size=1 << 14,
+                          procs=2) == kt.compress(data, transform="LZ", entropy="HUFFMAN",
+                                                  block_size=1 << 14, device=None)
 leaked = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "kanzi_tpu")]
 assert not leaked, leaked
 print("ISOLATED-OK")
