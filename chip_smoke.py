@@ -50,7 +50,20 @@ Phases, each failing hard (no exception is caught):
    C++ time of the same work (K9 also per block, with its rounds and the
    suffixes each round sorted; K10 also at the doubling rounds around its
    wrapper's rule; K11 also in cycles a bit);
-7. a profile of the level 2, ANS1 and RANGE device paths: the device's
+7. mesh: the mesh over cards (kanzi_tpu_torch.parallel), on the mesh of
+   every card (one on a one-card machine) and on four shards of card 0
+   (Mesh([cuda:0] * 4): the split and the gather with the real kernels,
+   no multi-card claim): compress_multichip and decompress_multichip of
+   the corpus at level 2 and level 5 and of its first 16 MiB with ANS1
+   and RANGE (the four-shard mesh: level 2 and ANS1), 4 MiB blocks,
+   jobs=4, each stream equal to the host C++ and the single-card stream
+   and decoded to the input, one launch a shard with rows a batch, no
+   plain version; the MB/s of each run beside the single-card run's;
+   compress_step on both meshes equal to the single-card step (its
+   launches one fused block_stats and one K3 a shard, its reduced total
+   the sum of nbits); dryrun_multichip(device_count()). Its launches are
+   counted apart from the main path's ("mesh_launches");
+8. a profile of the level 2, ANS1 and RANGE device paths: the device's
    busy share (torch.profiler) and the host functions that take the time
    (cProfile).
 
@@ -947,6 +960,151 @@ def cli_phase(torch, kt, K, corpus: bytes, short: bytes, range_chunks: int) -> d
     return launches
 
 
+def mesh_run(torch, kt, K, parallel, mesh, label, data, kw, kernels, want) -> dict:
+    """One config through compress_multichip and decompress_multichip on
+    `mesh`: the stream equal to `want` (the host C++ stream, which the
+    single-card stream equals too), decoded to the input, no plain version
+    run, and one launch of each sharded kernel a shard with rows a batch
+    (the rows of every sharded launch read by a spy on the launch). The
+    launch counts are set to 0 just before each direction and read just
+    after; returns them summed, and the MB/s of each direction."""
+    rows = []
+    real = parallel._launch_rows
+
+    def spy(m, streams, row_arrays, tables, kernel):
+        rows.append(len(next(iter(row_arrays.values()))))
+        return real(m, streams, row_arrays, tables, kernel)
+
+    nonempty = lambda r: sum(hi > lo for lo, hi in mesh.shares(r))  # noqa: E731
+    parallel._launch_rows = spy
+    try:
+        K.reset_counts()
+        t = time.perf_counter()
+        blob = parallel.compress_multichip(data, mesh, checksum=32, block_size=BLOCK,
+                                           jobs=4, **kw)
+        torch.cuda.synchronize()
+        enc_mbs = len(data) / (time.perf_counter() - t) / 1e6
+        counts = dict(K.launches)
+        enc_rows = list(rows)
+        check(blob == want, f"mesh {label}: stream != the host C++ and single-card stream")
+        rows.clear()
+        K.reset_counts()
+        t = time.perf_counter()
+        back = parallel.decompress_multichip(blob, mesh)
+        torch.cuda.synchronize()
+        dec_mbs = len(data) / (time.perf_counter() - t) / 1e6
+        check(back == data, f"mesh {label}: decode != input")
+        dec_rows = list(rows)
+    finally:
+        parallel._launch_rows = real
+    check(sum(K.plain_calls.values()) == 0, f"mesh {label}: a plain version ran")
+    nblocks = -(-len(data) // BLOCK)
+    enc_k, dec_k = kernels
+    check(0 < len(enc_rows) <= -(-nblocks // 4)
+          and counts[enc_k] == sum(nonempty(r) for r in enc_rows),
+          f"mesh {label}: {counts[enc_k]} {enc_k} launches for sharded launches of "
+          f"{enc_rows} rows")
+    if dec_k == "range_decode":    # RANGE decodes on the mesh's first card
+        check(dec_rows == [] and K.launches[dec_k] > 0, f"mesh {label}: RANGE decode")
+    else:
+        # decompress_multichip's Reader: jobs = the mesh's size (blocks a batch)
+        check(0 < len(dec_rows) <= -(-nblocks // mesh.size)
+              and K.launches[dec_k] == sum(nonempty(r) for r in dec_rows),
+              f"mesh {label}: {K.launches[dec_k]} {dec_k} launches for sharded "
+              f"launches of {dec_rows} rows")
+    if len(set(mesh.devices)) < mesh.size:   # shards on one card: every one ran
+        check(all(r >= mesh.size for r in enc_rows + dec_rows),
+              f"mesh {label}: a batch left a shard empty ({enc_rows}, {dec_rows})")
+    for k, v in K.launches.items():
+        counts[k] += v
+    print(f"mesh {label} on {mesh}: {len(data)} -> {len(blob)} bytes, encode "
+          f"{enc_mbs} MB/s (sharded launches of {enc_rows} rows), decode {dec_mbs} "
+          f"MB/s ({dec_rows}), launches {counts}", flush=True)
+    return {"launches": counts, "encode": enc_mbs, "decode": dec_mbs}
+
+
+def mesh_phase(torch, kt, K, parallel, smi, corpus, short, raw, lanes, step) -> dict:
+    """The mesh over cards: compress_multichip and decompress_multichip on
+    the mesh of every card and on four shards of one card (the split and
+    the gather with the real kernels; no multi-card claim), each stream
+    equal to the host C++ and the single-card stream; compress_step on
+    both meshes equal to the single-card step `step`, its reduced total
+    equal to the sum of its lane bit counts; dryrun_multichip. Returns the
+    phase's launches."""
+    world = parallel.device_mesh()
+    split = parallel.Mesh([torch.device("cuda", 0)] * 4)
+    paths = {"level 2": (corpus, dict(transform="DNA+LZ", entropy="HUFFMAN"),
+                         ("pack_lanes", "decode_lanes")),
+             "level 5": (corpus, dict(transform=LEVEL5_CHAIN, entropy="ANS0"),
+                         ("ans_encode", "ans_decode")),
+             "ANS1": (short, dict(transform="NONE", entropy="ANS1"),
+                      ("ans_encode", "ans_decode")),
+             "RANGE": (short, dict(transform="LZ", entropy="RANGE"),
+                       ("range_encode", "range_decode"))}
+    launches = {k: 0 for k in K.KERNELS}
+    rates = {}
+    for label, (data, kw, kernels) in paths.items():
+        cfg = dict(checksum=32, block_size=BLOCK, jobs=4, **kw)
+        want = kt.compress(data, device=None, **cfg)
+        t = time.perf_counter()
+        single = kt.compress(data, device="cuda", **cfg)
+        torch.cuda.synchronize()
+        enc_mbs = len(data) / (time.perf_counter() - t) / 1e6
+        check(single == want, f"{label}: single-card stream != host C++ stream")
+        t = time.perf_counter()
+        check(kt.decompress(single, jobs=4, device="cuda") == data,
+              f"{label}: single-card decode != input")
+        torch.cuda.synchronize()
+        rates[label] = {"single card": (enc_mbs,
+                                        len(data) / (time.perf_counter() - t) / 1e6)}
+        for name, mesh in (("world", world), ("split", split)):
+            if name == "split" and label not in ("level 2", "ANS1"):
+                continue
+            r = mesh_run(torch, kt, K, parallel, mesh, f"{label} ({name})", data, kw,
+                         kernels, want)
+            rates[label][f"{name} mesh ({mesh.size} shards)"] = (r["encode"], r["decode"])
+            for k, v in r["launches"].items():
+                launches[k] += v
+    print(f"mesh MB/s (encode, decode), one run each, {smi}:", flush=True)
+    for label, r in rates.items():
+        print(f"  {label}: " + "; ".join(f"{k} {v[0]}, {v[1]}" for k, v in r.items()),
+              flush=True)
+
+    # compress_step on both meshes against the single-card step
+    blocks, (syms, lens, tidx, tables) = raw, lanes
+    for name, mesh in (("world", world), ("split", split)):
+        K.reset_counts()
+        got = parallel.compress_step(blocks, syms, lens, tidx, tables, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        for a, b, what in zip(got, step, ("histos", "entropy1024", "words", "nbits",
+                                          "total")):
+            check(torch.equal(a.cpu(), b.cpu()), f"compress_step ({name} mesh): {what} "
+                  "!= the single-card step")
+        check(got[4].device == mesh.devices[0] and int(got[4]) == int(got[3].sum()),
+              f"compress_step ({name} mesh): total")
+        nb = sum(hi > lo for lo, hi in mesh.shares(len(blocks)))
+        nl = sum(hi > lo for lo, hi in mesh.shares(len(syms)))
+        check(counts["block_stats"] == nb and counts["pack_lanes"] == nl,
+              f"compress_step ({name} mesh): launches {counts}, expected {nb} and {nl}")
+        check(sum(K.plain_calls.values()) == 0, "compress_step on a mesh: a plain version ran")
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"compress_step on the {name} mesh {mesh}: equal to the single-card "
+              f"step, total {int(got[4])} bits, launches {counts}", flush=True)
+
+    K.reset_counts()
+    t = time.perf_counter()
+    parallel.dryrun_multichip(torch.cuda.device_count())
+    torch.cuda.synchronize()
+    check(sum(K.plain_calls.values()) == 0, "dryrun_multichip: a plain version ran")
+    for k, v in K.launches.items():
+        launches[k] += v
+    print(f"dryrun_multichip({torch.cuda.device_count()}): {time.perf_counter() - t:.3f} s, "
+          f"launches {dict(K.launches)}", flush=True)
+    return launches
+
+
 def profile_path(torch, kt, name: str, data: bytes, kw: dict) -> None:
     """One device compress and decompress of a slice path under
     torch.profiler (the device's busy time against the wall time) and one
@@ -1243,7 +1401,16 @@ def main() -> int:
         main_launches[k] += v
     phase_s["bwt_fpaq"] = time.perf_counter() - t_phase
 
-    # -- 7. where the time of the device paths goes -----------------------
+    # -- 7. the mesh over cards --------------------------------------------
+    print("== mesh", flush=True)
+    t_phase = time.perf_counter()
+    mesh_launches = mesh_phase(
+        torch, kt, K, parallel, smi, corpus, short, raw,
+        (syms_np, lens_np, tidx_np, tables_np),
+        (histos, torch.from_numpy(ent), words, nbits, total))
+    phase_s["mesh"] = time.perf_counter() - t_phase
+
+    # -- 8. where the time of the device paths goes -----------------------
     print("== profile", flush=True)
     t_phase = time.perf_counter()
     profile_path(torch, kt, "level 2", corpus, dict(level=2, jobs=4))
@@ -1260,6 +1427,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"],
             "launches": main_launches[name] + step_launches[name],
+            "mesh_launches": mesh_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

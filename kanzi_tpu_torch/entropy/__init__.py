@@ -76,18 +76,23 @@ def decode_many(etype: int, payloads, out_lens, ctx: dict, map_fn=map) -> list:
     ctx that `decodes_on_device` accepts: one kernel launch for the batch
     (HUFFMAN, ANS0, ANS1), or one per chunk index with a row per block
     (RANGE). Host prepares and per-block assembly run through `map_fn`
-    (the Reader's pool.map). Returns per block its uint8 array or the
-    exception that rejected its payload; nothing is retried on the host."""
+    (the Reader's pool.map). ctx["deviceDecodeHooks"], where set, holds
+    the HUFFMAN and ANS launches to take instead ({"huffman": fn, "ans":
+    fn}: a mesh's, parallel.mesh_decode_hooks); RANGE has none and decodes
+    on ctx["device"]. Returns per block its uint8 array or the exception
+    that rejected its payload; nothing is retried on the host."""
     if not decodes_on_device(etype, ctx):
         raise ValueError(f"entropy type {etype} does not decode on the device here")
     device = ctx["device"]
+    hooks = ctx.get("deviceDecodeHooks") or {}
     if etype == HUFFMAN_TYPE:
         from .huffman_device import huffman_decode_many
-        return huffman_decode_many(payloads, out_lens, device, map_fn)
+        return huffman_decode_many(payloads, out_lens, device, map_fn,
+                                   hook=hooks.get("huffman"))
     if etype in (ANS0_TYPE, ANS1_TYPE):
         from .ans_device import ans_decode_many
         return ans_decode_many(payloads, out_lens, 0 if etype == ANS0_TYPE else 1,
-                               device, map_fn)
+                               device, map_fn, hook=hooks.get("ans"))
     from .range_device import range_decode_many
     return range_decode_many(payloads, out_lens, device)
 
@@ -131,15 +136,19 @@ def decode(etype: int, payload: bytes, out_len: int, ctx: dict) -> bytes:
         return payload[:out_len]
     if decodes_on_device(etype, ctx):
         device = ctx["device"]
-        # device entropy decode (byte-identical to the host path); a payload
-        # the device path rejects raises, it is never retried on the host
+        hooks = ctx.get("deviceDecodeHooks") or {}
+        # device entropy decode (byte-identical to the host path), through
+        # the hooks as in decode_many; a payload the device path rejects
+        # raises, it is never retried on the host
         if etype == HUFFMAN_TYPE:
             from .huffman_device import huffman_decode_device
-            return huffman_decode_device(payload, out_len, device)
+            return huffman_decode_device(payload, out_len, device,
+                                         hook=hooks.get("huffman"))
         if etype in (ANS0_TYPE, ANS1_TYPE):
             from .ans_device import ans_decode_device
             return ans_decode_device(payload, out_len,
-                                     0 if etype == ANS0_TYPE else 1, device)
+                                     0 if etype == ANS0_TYPE else 1, device,
+                                     hook=hooks.get("ans"))
         if etype == RANGE_TYPE:
             from .range_device import range_decode_device
             return range_decode_device(payload, out_len, device)

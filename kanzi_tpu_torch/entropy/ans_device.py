@@ -195,16 +195,32 @@ def _dec_prep(args):
     return decode_batch(src, out_len, order)
 
 
-def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map) -> list:
+def decode_rows(batch: dict, order: int, glen: int, device) -> tuple:
+    """ONE chunk decode launch on `device` for a batch's stacked {bufs,
+    nbytes, states0, f2s, dtabs, ngroups, lr} rows: (symbols (R, glen, 4),
+    nread (R,)) as numpy arrays."""
+    st = to_port_state(batch, device)
+    syms, nread = ops_ans.decode_chunks(
+        st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
+        st["ngroups"], st["lr"], order, glen)
+    return syms.cpu().numpy(), nread.cpu().numpy()
+
+
+def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map,
+                    hook=None) -> list:
     """Decode the ANS payloads of a batch of blocks with ONE chunk decode
     launch on `device` for the device chunks of every block (the rows of
     all blocks together: the f2s width of the batch's widest logRange,
-    groups and logRange per row). The host prepares and the per-block
+    groups and logRange per row), or through `hook`, a function with
+    decode_rows' contract without the device (a mesh's sharded decode,
+    parallel.mesh_decode_hooks). The host prepares and the per-block
     assembly run through `map_fn` (the Reader's pool.map). Returns per
     block its uint8 array, byte-identical to the host decoder for any
     logRange the chunk headers carry, or the exception that rejected it:
     RuntimeError from the host prepare, KanziError where a chunk's renorm
-    reads leave its stream. Nothing is retried on the host."""
+    reads leave its stream, and for every block with device chunks the
+    error of a launch or hook that raised. Nothing is retried on the
+    host."""
     device = torch.device(device)
     preps = device_io.each(map_fn, _dec_prep, [
         (np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p, n, order)
@@ -216,15 +232,15 @@ def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map) -> list:
             rows.append(p[0])
             lo[i] = nrows
             nrows += len(p[0]["ngroups"])
-    syms = nread = None
+    syms = nread = failed = None
     if rows:
         batch = device_io.stack(rows)
-        st = to_port_state(batch, device)
-        syms, nread = ops_ans.decode_chunks(
-            st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
-            st["ngroups"], st["lr"], order, int(batch["ngroups"].max()))
-        syms = syms.cpu().numpy()
-        nread = nread.cpu().numpy()
+        glen = int(batch["ngroups"].max())
+        try:
+            syms, nread = (hook(batch, order, glen) if hook
+                           else decode_rows(batch, order, glen, device))
+        except (KanziError, ValueError, RuntimeError) as e:
+            failed = e
     chunk = _chunk_size(order)
 
     def finish(i):
@@ -233,6 +249,8 @@ def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map) -> list:
             if isinstance(p, Exception):
                 raise p
             return p
+        if failed is not None and i in lo:
+            raise failed
         rb, (flags, aux) = p
         out_len = out_lens[i]
         out = np.empty(out_len, dtype=np.uint8)
@@ -263,12 +281,14 @@ def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map) -> list:
     return device_io.each(map_fn, finish, range(len(preps)))
 
 
-def ans_decode_device(payload, out_len: int, order: int, device) -> bytes:
-    """Decode one ANS payload with the device pipeline (a batch of one); a
-    rejected payload raises as ans_decode_many says."""
+def ans_decode_device(payload, out_len: int, order: int, device, hook=None) -> bytes:
+    """Decode one ANS payload with the device pipeline (a batch of one,
+    through `hook` where given); a rejected payload raises as
+    ans_decode_many says."""
     if out_len == 0:
         return b""
-    return device_io.one(ans_decode_many([payload], [out_len], order, device))
+    return device_io.one(ans_decode_many([payload], [out_len], order, device,
+                                         hook=hook))
 
 
 def ans_encode_device(buf, order: int, device) -> tuple[bytes, int]:

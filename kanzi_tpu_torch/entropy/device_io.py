@@ -8,6 +8,10 @@ that event alone. On the CPU (the plain versions, for the tests) the call
 runs to its end before `launch` returns. `encode_block` takes one block
 through an engine's dispatch and collect.
 
+A mesh (parallel.Mesh) runs one launch a shard, each on its own stream
+and card: `MeshResult` holds the shards' HostResults and gathers their rows
+in order once every shard's event has fired.
+
 The Reader's batched decode goes through `each` (a per-block step on its
 pool, a rejected block's exception kept as its result), `stack` (the
 blocks' device rows as one launch's inputs) and `one` (a single block's
@@ -15,6 +19,8 @@ result, for the per-block path).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -41,6 +47,37 @@ class HostResult:
         return self._np
 
 
+class MeshResult:
+    """The HostResults of one launch a shard, in row order. Each shard's
+    device tensors stay referenced until its own event has fired."""
+
+    __slots__ = ("_parts", "_np")
+
+    def __init__(self, parts):
+        self._parts, self._np = list(parts), None
+
+    def get(self) -> tuple:
+        """Every shard's outputs, waited for one event at a time and
+        concatenated along the rows, in the order the launch gave them."""
+        if self._np is None:
+            outs = [p.get() for p in self._parts]
+            self._np = tuple(np.concatenate(col) for col in zip(*outs))
+            self._parts = None
+        return self._np
+
+
+@contextlib.contextmanager
+def on(stream):
+    """Make `stream` and its card current (nothing on the CPU, where
+    `stream` is None): the wrappers launch on the current stream of their
+    tensors' card."""
+    if stream is None:
+        yield
+        return
+    with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        yield
+
+
 def launch(stream, fn) -> HostResult:
     """Call fn() -> (inputs to keep alive, output tensors) on `stream`, or
     on the CPU where `stream` is None. On a CUDA stream the outputs are
@@ -49,7 +86,7 @@ def launch(stream, fn) -> HostResult:
     if stream is None:
         _keep, outs = fn()
         return HostResult(outs, None, None)
-    with torch.cuda.stream(stream):
+    with on(stream):
         keep, outs = fn()
         hosts = []
         for o in outs:

@@ -182,14 +182,33 @@ def _dec_prep(args):
     return dtables.copy(), lanes.copy(), flags, aux
 
 
-def huffman_decode_many(payloads, out_lens, device, map_fn=map) -> list:
+def decode_rows(batch: dict, device) -> tuple:
+    """ONE lane decode launch on `device` for a batch's stacked
+    {lanes, table_idx, dtables} rows: (symbols, the kernel's table index
+    flags) as numpy arrays, copied back together."""
+    st = to_port_state(batch, device)
+    bad = torch.empty(len(batch["lanes"]), dtype=torch.int32, device=device)
+
+    def run():
+        return st, (ops_huffman.decode_lanes(st["lanes"], st["table_idx"],
+                                             st["dtables"], bad), bad)
+
+    stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+    return device_io.launch(stream, run).get()
+
+
+def huffman_decode_many(payloads, out_lens, device, map_fn=map, hook=None) -> list:
     """Decode the Huffman payloads of a batch of blocks with ONE lane
     decode launch on `device` for the lanes of every block (each block's
-    table indices offset by the tables before it). The host prepares and
+    table indices offset by the tables before it), or through `hook`, a
+    function with decode_rows' contract without the device (a mesh's
+    sharded decode, parallel.mesh_decode_hooks). The host prepares and
     the per-block assembly run through `map_fn` (the Reader's pool.map).
     Returns per block its uint8 array, byte-identical to the host decoder,
     or the exception that rejected it: RuntimeError from the host
-    prepare, KanziError for a lane whose table index the kernel flags."""
+    prepare, KanziError for a lane whose table index the kernel flags, and
+    for every block with lanes the error of a launch or hook that raised.
+    Nothing is retried on the host."""
     device = torch.device(device)
     preps = device_io.each(map_fn, _dec_prep, [
         (np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p, n)
@@ -206,23 +225,20 @@ def huffman_decode_many(payloads, out_lens, device, map_fn=map) -> list:
         spans[i] = lane_base
         lane_base += len(lanes)
         table_base += len(dtables)
-    syms = lane_bad = None
+    syms = lane_bad = failed = None
     if rows:
-        st = to_port_state(device_io.stack(rows), device)
-        bad = torch.empty(lane_base, dtype=torch.int32, device=device)
-
-        def run():
-            return st, (ops_huffman.decode_lanes(st["lanes"], st["table_idx"],
-                                                 st["dtables"], bad), bad)
-
-        # the symbols and the kernel's table index flags come back together
-        stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
-        syms, lane_bad = device_io.launch(stream, run).get()
+        batch = device_io.stack(rows)
+        try:
+            syms, lane_bad = hook(batch) if hook else decode_rows(batch, device)
+        except (KanziError, ValueError, RuntimeError) as e:
+            failed = e
 
     def finish(i):
         p = preps[i]
         if isinstance(p, Exception):
             raise p
+        if failed is not None and i in spans:
+            raise failed
         _, lanes, flags, aux = p
         lane = spans.get(i, 0)
         if len(lanes) and lane_bad[lane:lane + len(lanes)].any():
@@ -249,12 +265,14 @@ def huffman_decode_many(payloads, out_lens, device, map_fn=map) -> list:
     return device_io.each(map_fn, finish, range(len(preps)))
 
 
-def huffman_decode_device(payload, out_len: int, device) -> bytes:
+def huffman_decode_device(payload, out_len: int, device, hook=None) -> bytes:
     """Decode one Huffman entropy payload with the device pipeline (a
-    batch of one); a rejected payload raises as huffman_decode_many says."""
+    batch of one, through `hook` where given); a rejected payload raises as
+    huffman_decode_many says."""
     if out_len == 0:
         return b""
-    return device_io.one(huffman_decode_many([payload], [out_len], device))
+    return device_io.one(huffman_decode_many([payload], [out_len], device,
+                                             hook=hook))
 
 
 def huffman_encode_device(buf, device) -> tuple[bytes, int]:

@@ -16,7 +16,8 @@ import kanzi_tpu_torch as kt
 from kanzi_tpu_torch import _kernels, native, parallel
 from kanzi_tpu_torch.core import KanziError
 from kanzi_tpu_torch.entropy import ans_device, range_device
-from kanzi_tpu_torch.entropy.huffman_device import (huffman_decode_device,
+from kanzi_tpu_torch.entropy.huffman_device import (DeviceHuffmanEngine,
+                                                    huffman_decode_device,
                                                     huffman_encode_device)
 from kanzi_tpu_torch.ops import ans as ops_ans, block_stats, huffman as ops_huffman
 from kanzi_tpu_torch.ops import bwt_inverse as ops_bi, fpaq_batch as ops_fb
@@ -799,3 +800,81 @@ def test_device_events_on_card_match_cpu(card, entropy):
         key = lambda e: e[1]  # noqa: E731 (per block, in order)
         got[device] = (w.getvalue(), sorted(rec.events, key=key), drec.events)
     assert got["cuda"] == got["cpu"]
+
+
+def _mesh(name):
+    """The mesh of every card, or four shards of card 0."""
+    if name == "world":
+        return parallel.device_mesh()
+    return parallel.Mesh([torch.device("cuda", 0)] * 4)
+
+
+@pytest.mark.parametrize("name", ["world", "split"])
+@pytest.mark.parametrize("kw", [dict(transform="DNA+LZ", entropy="HUFFMAN"),
+                                dict(transform="TEXT+UTF+BWT+RANK+ZRLT", entropy="ANS0"),
+                                dict(transform="NONE", entropy="ANS1"),
+                                dict(transform="LZ", entropy="RANGE")],
+                         ids=["level2", "level5", "ANS1", "RANGE"])
+def test_mesh_on_card(card, name, kw, monkeypatch):
+    """compress_multichip and decompress_multichip on the card's mesh:
+    the host C++ stream, decoded to the input, one launch a shard with
+    rows a batch, no plain version."""
+    mesh = _mesh(name)
+    rows = []
+    real = parallel._launch_rows
+
+    def spy(m, streams, row_arrays, tables, kernel):
+        rows.append(len(next(iter(row_arrays.values()))))
+        return real(m, streams, row_arrays, tables, kernel)
+
+    monkeypatch.setattr(parallel, "_launch_rows", spy)
+    rng = np.random.default_rng(23)
+    data = _text(300000) + rng.integers(0, 4, 300000, dtype=np.uint8).tobytes()
+    cfg = dict(block_size=1 << 17, checksum=32, **kw)
+    _kernels.reset_counts()
+    blob = parallel.compress_multichip(data, mesh, **cfg)
+    enc, enc_rows = dict(_kernels.launches), list(rows)
+    assert blob == kt.compress(data, device=None, **cfg)
+    rows.clear()
+    _kernels.reset_counts()
+    assert parallel.decompress_multichip(blob, mesh) == data
+    nonempty = lambda r: sum(hi > lo for lo, hi in mesh.shares(r))  # noqa: E731
+    kernel = {"HUFFMAN": ("pack_lanes", "decode_lanes"), "ANS0": ("ans_encode", "ans_decode"),
+              "ANS1": ("ans_encode", "ans_decode"),
+              "RANGE": ("range_encode", "range_decode")}[kw["entropy"]]
+    assert enc_rows and enc[kernel[0]] == sum(nonempty(r) for r in enc_rows)
+    if kw["entropy"] == "RANGE":       # on the mesh's first card
+        assert rows == [] and _kernels.launches["range_decode"] > 0
+    else:
+        assert rows and _kernels.launches[kernel[1]] == sum(nonempty(r) for r in rows)
+    assert sum(_kernels.plain_calls.values()) == 0
+
+
+@pytest.mark.parametrize("name", ["world", "split"])
+def test_compress_step_on_card_mesh(card, name):
+    rng = np.random.default_rng(24)
+    blocks = rng.integers(0, 64, (8, 1 << 16), dtype=np.uint8)
+    blocks[2] = rng.integers(0, 256, 1 << 16, dtype=np.uint8)
+    _, (syms, lens, tidx, tables) = DeviceHuffmanEngine("cpu").lane_batch(list(blocks))
+    mesh = _mesh(name)
+    _kernels.reset_counts()
+    got = parallel.compress_step(blocks, syms, lens, tidx, tables, mesh=mesh)
+    torch.cuda.synchronize()
+    nonempty = lambda r: sum(hi > lo for lo, hi in mesh.shares(r))  # noqa: E731
+    assert _kernels.launches["block_stats"] == nonempty(len(blocks))
+    assert _kernels.launches["pack_lanes"] == nonempty(len(syms))
+    want = parallel.compress_step(blocks, syms, lens, tidx, tables, device="cuda")
+    for a, b in zip(got, want):
+        assert a.device == mesh.devices[0]
+        assert torch.equal(a.cpu(), b.cpu())
+    assert int(got[4]) == int(got[3].sum())
+    assert sum(_kernels.plain_calls.values()) == 0
+
+
+def test_dryrun_multichip_on_card(card):
+    _kernels.reset_counts()
+    parallel.dryrun_multichip(torch.cuda.device_count())
+    assert sum(_kernels.plain_calls.values()) == 0
+    for k in ("pack_lanes", "decode_lanes", "ans_encode", "ans_decode", "range_encode",
+              "range_decode", "block_stats"):
+        assert _kernels.launches[k] > 0, k
