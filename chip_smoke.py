@@ -63,13 +63,20 @@ Phases, each failing hard (no exception is caught):
    launches one fused block_stats and one K3 a shard, its reduced total
    the sum of nbits); dryrun_multichip(device_count()). Its launches are
    counted apart from the main path's ("mesh_launches");
-8. a profile of the level 2, ANS1 and RANGE device paths: the device's
+8. bench: the port's bench (kanzi_tpu_torch.bench.main in-process) on
+   16 MiB, three runs of levels 2, 3 and 5, ANS1 and RANGE on the device
+   and host C++ paths in turns, and its kernel rows: its JSON read back,
+   every device row measured, its card line this card's, no plain version
+   run, and the launch counts of the other phases left as they were; each
+   kernel's bench median beside its time in the kernel phase;
+9. a profile of the level 2, ANS1 and RANGE device paths: the device's
    busy share (torch.profiler) and the host functions that take the time
    (cProfile).
 
 It then prints one JSON line with every kernel's numbers and, last, the
-result line {"ok": true, "device": {...}}. Without a card, or without the
-package beside this script, it exits non-zero and prints no result.
+result line {"ok": true, "device": {...}}. Without a card it exits
+non-zero and prints no result; without the package beside this script its
+import fails.
 """
 
 from __future__ import annotations
@@ -84,21 +91,17 @@ import time
 
 import numpy as np
 
+from kanzi_tpu_torch import bench
+from kanzi_tpu_torch.bench import (BLOCK, LEVEL5_CHAIN, MIB, SEED, bound,  # noqa: F401
+                                   nbytes_of, period2_block, prefix_double_bound,
+                                   synth_corpus)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-MIB = 1 << 20
-BLOCK = 4 * MIB
 CORPUS = 64 * MIB
 SHORT = 16 * MIB          # the ANS1 and RANGE paths: a smaller depth
-SEED = 0x4B414E5A
 SLICE_REPS = 3
 SHORT_REPS = 3
 LEVEL3_CHAIN = "TEXT+UTF+PACK+MM+LZX"
-LEVEL5_CHAIN = "TEXT+UTF+BWT+RANK+ZRLT"
-
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
-# the non-tensor-core rate, taken for the integer and float32 work here
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
 
 
 def check(cond, msg: str) -> None:
@@ -106,72 +109,19 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def synth_corpus(size: int, seed: int = SEED) -> bytes:
-    """Deterministic mixed corpus (text/binary/dna/zeros/random), the port's
-    copy of the JAX package's bench corpus. The text is SURVEY.md beside
-    this script, with per-copy perturbations."""
-    rng = np.random.default_rng(seed)
-    with open(os.path.join(HERE, "SURVEY.md"), "rb") as fh:
-        text = fh.read()
-    parts = []
-    tpart = []
-    while sum(map(len, tpart)) < int(size * 0.45):
-        arr = np.frombuffer(text, dtype=np.uint8).copy()
-        idx = rng.integers(0, len(arr), len(arr) // 64)
-        arr[idx] = rng.integers(32, 127, len(idx), dtype=np.uint8)
-        tpart.append(arr.tobytes())
-    parts.append(b"".join(tpart))
-    n = int(size * 0.20) // 4
-    vals = np.cumsum(rng.integers(-3, 4, n, dtype=np.int32)).astype("<i4")
-    parts.append(vals.tobytes())
-    dna = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, int(size * 0.10))]
-    parts.append(dna.tobytes())
-    z = np.zeros(int(size * 0.10), dtype=np.uint8)
-    idx = rng.integers(0, len(z), len(z) // 50)
-    z[idx] = rng.integers(1, 256, len(idx), dtype=np.uint8)
-    parts.append(z.tobytes())
-    parts.append(rng.integers(0, 256, int(size * 0.15), dtype=np.uint8).tobytes())
-    blob = b"".join(parts)[:size]
-    arr = np.frombuffer(blob, dtype=np.uint8)
-    m = (len(arr) >> 20) << 20
-    strided = arr[:m].reshape(-1, MIB)
-    order = rng.permutation(len(strided))
-    return strided[order].tobytes() + arr[m:].tobytes()
-
+# median_ms, transform_posts, reader_ans_batch, padded_block and textbook
+# keep the signatures that tools/torch_kernel_ab.py calls them with; the
+# work is the bench module's
 
 def median_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Median of per-call device times from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def bound(nbytes: int, nops: int) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = nops / PEAK_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return statistics.median(bench.event_ms(fn, reps, warmup))
 
 
 def transform_posts(native, kt, blocks, chain: str, entropy: str) -> list:
-    """The post-transform blocks that the Writer hands the entropy engine."""
-    posts = []
-    ctx = {"bsVersion": 6, "entropy": entropy, "blockSize": BLOCK}
-    for b in blocks:
-        dst = np.empty(2 * len(b) + 65536, np.uint8)
-        n = native.block_transform(b, kt.transforms.get_type(chain),
-                                   kt.entropy.get_type(entropy), dict(ctx), 0,
-                                   False, dst)[0]
-        posts.append(dst[:n].copy())
-    return posts
+    """The post-transform blocks that the Writer hands the entropy engine
+    (bench.transform_posts)."""
+    return bench.transform_posts(blocks, chain, entropy)
 
 
 def hold(torch, kernel, plain, args, extra=()) -> float:
@@ -187,18 +137,10 @@ def hold(torch, kernel, plain, args, extra=()) -> float:
     return err
 
 
-def nbytes_of(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def reader_ans_batch(native, ans_device, posts, order: int) -> dict:
     """The K6 rows of the blocks' host ANS payloads stacked as the batched
-    Reader stacks them."""
-    from kanzi_tpu_torch.entropy import device_io
-    etype = 8 if order else 5
-    return device_io.stack([ans_device.decode_batch(
-        np.frombuffer(native.entropy_encode(etype, p, {"bsVersion": 6})[0], np.uint8),
-        len(p), order)[0] for p in posts])
+    Reader stacks them (bench.reader_ans_batch)."""
+    return bench.reader_ans_batch(posts, order)
 
 
 def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
@@ -392,17 +334,10 @@ def timed_ms(torch, fn):
     return out, a.elapsed_time(b)
 
 
-def period2_block(n: int) -> np.ndarray:
-    """A block that repeats "ab": about log2(n) doubling rounds."""
-    return np.tile(np.frombuffer(b"ab", np.uint8), n // 2)
-
-
 def padded_block(torch, block: np.ndarray, device):
-    """The (size,) int32 input of prefix_double for one block."""
-    from kanzi_tpu_torch.ops.suffix_sort import _bucket
-    padded = np.zeros(_bucket(len(block)), np.int32)
-    padded[:len(block)] = block
-    return torch.from_numpy(padded).to(device)
+    """The (size,) int32 input of prefix_double for one block
+    (bench.padded_block)."""
+    return bench.padded_block(block, device)
 
 
 def prefix_double_torch_sort(torch, padded, n: int):
@@ -428,26 +363,10 @@ def prefix_double_torch_sort(torch, padded, n: int):
             return order
 
 
-def prefix_double_bound(size: int, rounds: int) -> tuple[float, str]:
-    """K9's least time: the padded input read and the order written once;
-    per round a key and a relabel of a few operations and the n log2 n
-    comparisons that a sort of size keys needs."""
-    return bound(8 * size, rounds * size * (size.bit_length() - 1 + 7))
-
-
 def textbook(ops_ss, blocks, device):
     """(texts, last columns, primary rows) of the textbook BWTs of the
-    blocks with their zero bytes mapped to 1 and one 0 appended. The
-    unique minimum makes the sorted rotations the sorted suffixes, so the
-    suffix order of the mapped block (K9) gives both."""
-    texts, lasts, prims = [], [], []
-    for b in blocks:
-        t = np.concatenate([np.where(b == 0, 1, b), [0]]).astype(np.uint8)
-        sa = np.concatenate([[len(t) - 1], ops_ss.suffix_array_device(t[:-1], device)])
-        texts.append(t)
-        lasts.append(t[(sa - 1) % len(t)])
-        prims.append(int(np.nonzero(sa == 0)[0][0]))
-    return np.stack(texts), np.stack(lasts), np.array(prims, np.int32)
+    blocks (bench.textbook)."""
+    return bench.textbook(blocks, device)
 
 
 def scan_kernels(torch, raw, device) -> dict:
@@ -1105,6 +1024,55 @@ def mesh_phase(torch, kt, K, parallel, smi, corpus, short, raw, lanes, step) -> 
     return launches
 
 
+def bench_phase(K, smi: str, results: dict) -> None:
+    """kanzi_tpu_torch.bench.main in-process on 16 MiB, three runs of levels
+    2, 3 and 5, ANS1 and RANGE: its last stdout line parsed, every device
+    row measured, its card line this card's, no plain version run and the
+    other phases' launch counts untouched; each kernel's bench median
+    printed beside its kernel-phase time (the bench's K1, K2, block_stats,
+    K10 and K11 rows run on four blocks here, the kernel phase's on 16)."""
+    import contextlib
+    import io
+
+    before = (dict(K.launches), dict(K.plain_calls))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--size", "16m", "--runs", "3", "--levels", "2,3,5,ANS1,RANGE"])
+    check(rc == 0, f"bench: exit code {rc}")
+    check((dict(K.launches), dict(K.plain_calls)) == before,
+          "bench: the launch counts of the other phases changed")
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(result["card"] == smi, f"bench: card {result['card']!r}, not {smi!r}")
+    check(sorted(result["levels"]) == sorted(["2", "3", "5", "ANS1", "RANGE"]),
+          f"bench: rows {sorted(result['levels'])}")
+    for key, row in result["levels"].items():
+        d, h = row["device"], row["host"]
+        check(row["kernel"] and d["launches"], f"bench {key}: no device launch")
+        for way in ("encode_mbs", "decode_mbs"):
+            check(d[way]["n"] == 3 and d[way]["min"] > 0 and h[way]["min"] > 0,
+                  f"bench {key}: {way} not measured")
+        print(f"bench {key}: MB/s medians device/host encode {d['encode_mbs']['median']}/"
+              f"{h['encode_mbs']['median']}, decode {d['decode_mbs']['median']}/"
+              f"{h['decode_mbs']['median']}; device launches {d['launches']}", flush=True)
+    check(list(result["kernels"]) == list(K.KERNELS), "bench: kernel rows")
+    for name, r in result["kernels"].items():
+        check(r["ms"]["median"] > 0 and r["launches"] > 0 and r["bound_ms"] > 0,
+              f"bench kernel {name}: not measured")
+        k = results[name]
+        print(f"bench kernel {name} {r['shape']}: median {r['ms']['median']:.4f} ms (q1 "
+              f"{r['ms']['q1']:.4f}, q3 {r['ms']['q3']:.4f}, n {r['ms']['n']}), device "
+              f"{r.get('device_ms', {}).get('median')} ms; kernel phase {k['ms']:.4f} ms, "
+              f"device {k.get('device_ms')} ms at {k['shape']}", flush=True)
+    for name, r in result["device_kernels"].items():
+        check(r["ms"]["median"] > 0 and r["readback"]["ms"]["median"] > 0,
+              f"bench device row {name}: not measured")
+    for nblocks, point in result["batch_curve"].items():
+        check(all(r["gbps"] > 0 for r in point.values()), f"bench curve {nblocks}")
+    print(f"bench: {result['metric']}: value {result['value']}; device rows "
+          f"{ {k: r['gbps'] for k, r in result['device_kernels'].items()} } GB/s; launches "
+          f"{result['launches']}", flush=True)
+
+
 def profile_path(torch, kt, name: str, data: bytes, kw: dict) -> None:
     """One device compress and decompress of a slice path under
     torch.profiler (the device's busy time against the wall time) and one
@@ -1159,11 +1127,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "kanzi_tpu_torch")):
-        print("chip_smoke: kanzi_tpu_torch is not beside this script",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1410,7 +1373,13 @@ def main() -> int:
         (histos, torch.from_numpy(ent), words, nbits, total))
     phase_s["mesh"] = time.perf_counter() - t_phase
 
-    # -- 8. where the time of the device paths goes -----------------------
+    # -- 8. the port's bench, small ----------------------------------------
+    print("== bench", flush=True)
+    t_phase = time.perf_counter()
+    bench_phase(K, smi, results)
+    phase_s["bench"] = time.perf_counter() - t_phase
+
+    # -- 9. where the time of the device paths goes -----------------------
     print("== profile", flush=True)
     t_phase = time.perf_counter()
     profile_path(torch, kt, "level 2", corpus, dict(level=2, jobs=4))
