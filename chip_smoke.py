@@ -63,13 +63,24 @@ Phases, each failing hard (no exception is caught):
    launches one fused block_stats and one K3 a shard, its reduced total
    the sum of nbits); dryrun_multichip(device_count()). Its launches are
    counted apart from the main path's ("mesh_launches");
-8. bench: the port's bench (kanzi_tpu_torch.bench.main in-process) on
+8. robustness: the decode contract on hostile streams, on the card: 420
+   seeded mutants (kanzi_tpu_torch.robustness: byte XORs, payload XORs,
+   truncations, edits of the first chunk header, of ANS logRange and
+   chunk sizes, and of block sizes) of HUFFMAN (K4), ANS0 and ANS1 (K6)
+   and RANGE (K8) streams, checksum 32 and 0, 404 of 64 KiB blocks and 16
+   of the main path's 4 MiB blocks, each decoded by a device Reader (jobs
+   1 and 4 in turns) and by the host C++ Reader: the outcomes equal (the
+   same bytes, or KanziError with the same code), no DeviceFault, no
+   checksum-32 mutant decoded to other bytes, K4, K6 and K8 launched; then
+   a good round trip of each codec and a clean torch.cuda.synchronize();
+   the counts by outcome and the phase's seconds on a line of their own;
+9. bench: the port's bench (kanzi_tpu_torch.bench.main in-process) on
    16 MiB, three runs of levels 2, 3 and 5, ANS1 and RANGE on the device
    and host C++ paths in turns, and its kernel rows: its JSON read back,
    every device row measured, its card line this card's, no plain version
    run, and the launch counts of the other phases left as they were; each
    kernel's bench median beside its time in the kernel phase;
-9. a profile of the level 2, ANS1 and RANGE device paths: the device's
+10. a profile of the level 2, ANS1 and RANGE device paths: the device's
    busy share (torch.profiler) and the host functions that take the time
    (cProfile).
 
@@ -176,21 +187,25 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     del st, a, full
 
     # K6, order 0: the rows of four blocks' host ANS0 payloads in one
-    # launch, as the batched Reader decodes them at level 5 (jobs=4)
+    # launch, as the batched Reader decodes them at level 5 (jobs=4), with
+    # the engine's host rule (held under kanzi_tpu's too)
     batch = reader_ans_batch(native, ans_device, posts5, 0)
     glen = int(batch["ngroups"].max())
     st = to_port_state(batch, cuda)
     a = (st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
          st["ngroups"], st["lr"])
-    derr = hold(torch, ops_ans.decode_chunks, ops_ans._decode_chunks_plain, a, (0, glen))
+    derr = max(hold(torch, ops_ans.decode_chunks, ops_ans._decode_chunks_plain, a,
+                    (0, glen, True)),
+               hold(torch, ops_ans.decode_chunks, ops_ans._decode_chunks_plain, a, (0, glen)))
     B = a[0].shape[0]
     nsym = 4 * int(batch["ngroups"].sum())
     bms, bby = bound(nbytes_of(*a) + B * glen * 4 + B * 4, 12 * nsym)
     dec = dict(source="kanzi_tpu_torch/csrc/ans.cu",
                replaces="kanzi_tpu/ops/ans.py:114", shape=[B, glen, 4],
                max_abs_err=derr,
-               ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 0, glen), 10),
-               plain_ms=median_ms(torch, lambda: ops_ans._decode_chunks_plain(*a, 0, glen), 1, 0),
+               ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 0, glen, True), 10),
+               plain_ms=median_ms(torch, lambda: ops_ans._decode_chunks_plain(*a, 0, glen, True),
+                                  1, 0),
                bound_ms=bms, bound_by=bby, library_ms=None)
     dec["ns_per_step"] = dec["ms"] * 1e6 / nsym
     del st, a
@@ -220,7 +235,8 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     nsym = 4 * int(batch["ngroups"].sum())
     bms, bby = bound(nbytes_of(*a) + B * glen * 4 + B * 4, 12 * nsym)
     dec["order1"] = dict(shape=[B, glen, 4], bound_ms=bms, bound_by=bby,
-                         ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 1, glen), 3))
+                         ms=median_ms(torch, lambda: ops_ans.decode_chunks(*a, 1, glen, True),
+                                      3))
     dec["order1"]["ns_per_step"] = dec["order1"]["ms"] * 1e6 / nsym
     del st, a
     small = raw[0][:32768]
@@ -238,9 +254,9 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     a = (st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
          st["ngroups"], st["lr"])
     dec["max_abs_err"] = max(derr, hold(torch, ops_ans.decode_chunks,
-                                        ops_ans._decode_chunks_plain, a, (1, glen)))
+                                        ops_ans._decode_chunks_plain, a, (1, glen, True)))
     dec["order1"].update(held_on=[1, glen, 4], plain_ms=median_ms(
-        torch, lambda: ops_ans._decode_chunks_plain(*a, 1, glen), 1, 0))
+        torch, lambda: ops_ans._decode_chunks_plain(*a, 1, glen, True), 1, 0))
     del st, a
     results["ans_encode"], results["ans_decode"] = enc, dec
 
@@ -285,7 +301,9 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
     del st, a, u, u_dec
 
     # K8: the first chunks of four blocks' host RANGE payloads, four rows as
-    # the batched Reader's lockstep walk launches them (jobs=4)
+    # the batched Reader's lockstep walk launches them (jobs=4), with the
+    # engine's host rules (each row's bits and slot table bound); also
+    # timed under kanzi_tpu's rules (no bound), the call it made before
     payloads = [native.entropy_encode(4, p, {"bsVersion": 6})[0] for p in posts_lz]
     batch = device_io.stack([range_device.chunk_batch(np.frombuffer(p, np.uint8), 0,
                                                       range_device._CHUNK)[2]
@@ -296,15 +314,23 @@ def ans_range_kernels(torch, kt, native, raw, cuda, results) -> None:
          st["nvalid"])
     glen = range_device._CHUNK
     B = a[0].shape[0]
-    err = hold(torch, ops_range.decode_chunks, ops_range._decode_chunks_plain, a, (glen,))
-    bms, bby = bound(nbytes_of(*a) + B * glen + B * 4, 30 * B * glen)
+    host_rules = (glen, st["nbits"], st["bound"])
+    err = hold(torch, ops_range.decode_chunks, ops_range._decode_chunks_plain, a, host_rules)
+    err = max(err, hold(torch, ops_range.decode_chunks, ops_range._decode_chunks_plain, a,
+                        (glen,)))
+    bms, bby = bound(nbytes_of(*a, st["nbits"], st["bound"]) + B * glen + B * 4,
+                     30 * B * glen)
     r = results["range_decode"] = dict(
         source="kanzi_tpu_torch/csrc/range.cu", replaces="kanzi_tpu/ops/range.py:186",
         shape=[B, glen], max_abs_err=max(err, u32_dec_err),
-        ms=median_ms(torch, lambda: ops_range.decode_chunks(*a, glen), 20),
-        plain_ms=median_ms(torch, lambda: ops_range._decode_chunks_plain(*a, glen), 1, 0),
+        ms=median_ms(torch, lambda: ops_range.decode_chunks(*a, *host_rules), 20),
+        plain_ms=median_ms(torch, lambda: ops_range._decode_chunks_plain(*a, *host_rules),
+                           1, 0),
         bound_ms=bms, bound_by=bby, library_ms=None)
     r["ns_per_step"] = r["ms"] * 1e6 / glen
+    r["kanzi_rules_ms"] = median_ms(torch, lambda: ops_range.decode_chunks(*a, glen), 20)
+    print(f"range_decode at {[B, glen]}: {r['ms']:.4f} ms with the host rules, "
+          f"{r['kanzi_rules_ms']:.4f} ms with kanzi_tpu's (no bound)", flush=True)
     # the Reader's chunk walk over the whole block: host clock per chunk
     # beside the kernel's device time, so the host share of a step shows
     n = len(posts_lz[0])
@@ -1024,6 +1050,53 @@ def mesh_phase(torch, kt, K, parallel, smi, corpus, short, raw, lanes, step) -> 
     return launches
 
 
+ROBUST_STREAMS, ROBUST_BIG = 404, 16    # 64 KiB-block and 4 MiB-block mutants
+
+
+def robustness_phase(torch, kt, K, smi: str) -> None:
+    """Hostile streams through device Readers against the host C++
+    Reader (kanzi_tpu_torch.robustness): every outcome equal, no fault, the
+    context usable after; the counts and the phase's launches printed."""
+    from kanzi_tpu_torch import robustness
+
+    t0 = time.perf_counter()
+    cases = list(robustness.streams(ROBUST_STREAMS, big=ROBUST_BIG))
+    made = time.perf_counter() - t0
+    check(len(cases) == ROBUST_STREAMS + ROBUST_BIG,
+          f"robustness: {len(cases)} streams made, not {ROBUST_STREAMS + ROBUST_BIG}")
+    K.reset_counts()
+    res = robustness.check(cases, lambda b, j: kt.decompress(b, jobs=j, device="cuda"),
+                           lambda b, j: kt.decompress(b, jobs=j, device=None), jobs=(1, 4))
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    check(sum(K.plain_calls.values()) == 0, "robustness: a plain version ran")
+    for k in ("decode_lanes", "ans_decode", "range_decode"):
+        check(launches[k] > 0, f"robustness: {k} never launched")
+    check(not res["disagree"], f"robustness: device and host disagree on "
+          f"{len(res['disagree'])} streams: {res['disagree'][:8]}")
+    check(res["wrong_bytes"] == 0, f"robustness: {res['wrong_bytes']} checksum-32 "
+          "mutants decoded to other bytes than the input")
+    # the context stays usable: a good round trip of each codec
+    good = bench.synth_corpus(1 << 20, 7)
+    for codec, kw in robustness.CODECS.items():
+        blob = kt.compress(good, block_size=256 << 10, checksum=32, jobs=4,
+                           device="cuda", **kw)
+        check(blob == kt.compress(good, block_size=256 << 10, checksum=32, jobs=4,
+                                  device=None, **kw), f"robustness: {codec} stream after")
+        check(kt.decompress(blob, jobs=4, device="cuda") == good,
+              f"robustness: {codec} round trip after the hostile streams")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print("robustness " + json.dumps({
+        "streams": res["streams"], "exact": res["exact"],
+        "other_bytes": res["other_bytes"],
+        "rejected": {str(k): v for k, v in sorted(res["rejected"].items())},
+        "disagree": len(res["disagree"]), "by_codec": res["by_codec"],
+        "decode_seconds": round(res["seconds"], 3), "made_seconds": round(made, 3),
+        "seconds": round(seconds, 3), "card": smi}), flush=True)
+    print(f"robustness launches: {launches}", flush=True)
+
+
 def bench_phase(K, smi: str, results: dict) -> None:
     """kanzi_tpu_torch.bench.main in-process on 16 MiB, three runs of levels
     2, 3 and 5, ANS1 and RANGE: its last stdout line parsed, every device
@@ -1373,13 +1446,19 @@ def main() -> int:
         (histos, torch.from_numpy(ent), words, nbits, total))
     phase_s["mesh"] = time.perf_counter() - t_phase
 
-    # -- 8. the port's bench, small ----------------------------------------
+    # -- 8. hostile and truncated streams: the decode contract ------------
+    print("== robustness", flush=True)
+    t_phase = time.perf_counter()
+    robustness_phase(torch, kt, K, smi)
+    phase_s["robustness"] = time.perf_counter() - t_phase
+
+    # -- 9. the port's bench, small ----------------------------------------
     print("== bench", flush=True)
     t_phase = time.perf_counter()
     bench_phase(K, smi, results)
     phase_s["bench"] = time.perf_counter() - t_phase
 
-    # -- 9. where the time of the device paths goes -----------------------
+    # -- 10. where the time of the device paths goes ----------------------
     print("== profile", flush=True)
     t_phase = time.perf_counter()
     profile_path(torch, kt, "level 2", corpus, dict(level=2, jobs=4))

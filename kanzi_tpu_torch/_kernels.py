@@ -13,10 +13,18 @@ Every launch API returns ``cudaGetLastError()``; ``launch`` raises when it
 is not 0 and counts the launch. ``launches`` holds one plain integer per
 kernel, ``plain_calls`` one per plain version; both are counted under a
 lock, since Writers and Readers on several threads launch at once.
+
+A failure of the card, and not of the data, raises ``DeviceFault``: a
+refused launch, a failed build, and an error that the CUDA context reports
+(``torch.AcceleratorError``, a device allocation that fails), which
+``card_errors`` converts where the engines launch and read back. The
+engines keep a rejected payload as its block's result; a ``DeviceFault``
+is never one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import os
@@ -54,12 +62,13 @@ _API = {
         "kz_ans_encode_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
         "kz_ans_encode_u16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
         "kz_ans_decode": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-                          _P, _P, _P, _I, _P],
+                          _P, _P, _P, _I, _I, _P],
         "kz_ans_decode_scratch": [_I, _I, _I, _I],
     },
     "range.cu": {
         "kz_range_encode": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
-        "kz_range_decode": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+        "kz_range_decode": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+                            _P],
     },
     "suffix_sort.cu": {
         "kz_prefix_double": [_P, _I, _I, _P, _P, _P, _I, _P],
@@ -90,6 +99,30 @@ _fns: dict = {}
 _lock = threading.Lock()
 build_log: dict = {}      # source -> nvcc's output (ptxas register report)
 build_seconds = 0.0
+
+
+class DeviceFault(RuntimeError):
+    """The card failed, not the data: a launch the CUDA runtime refused, a kernel
+    build that failed, or an error read back from the CUDA context. Never
+    a payload's rejection: the Reader raises it as it is, under the block's
+    id, and never as a corrupt block (KanziError)."""
+
+
+# torch's own types for an error of the CUDA context and for a device
+# allocation that failed
+_CARD_ERRORS = (torch.AcceleratorError, torch.OutOfMemoryError)
+
+
+@contextlib.contextmanager
+def card_errors(where: str):
+    """Raise an error of the card inside the block as DeviceFault, named
+    by `where`; every other exception passes unchanged."""
+    try:
+        yield
+    except DeviceFault:
+        raise
+    except _CARD_ERRORS as e:
+        raise DeviceFault(f"{where}: {e}") from e
 
 
 def reset_counts() -> None:
@@ -131,7 +164,7 @@ def _nvcc() -> str:
         return path
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise DeviceFault("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return found
 
 
@@ -174,7 +207,7 @@ def build() -> float:
                 else:
                     os.replace(tmp, _lib_path(src))
             if failed:
-                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+                raise DeviceFault("nvcc failed:\n" + "\n".join(failed))
             build_seconds = time.perf_counter() - t0
             return build_seconds
         finally:
@@ -189,7 +222,10 @@ def _fn(name: str):
         if not _fns:
             build()
             for src, api in _API.items():
-                lib = ctypes.CDLL(_lib_path(src))
+                try:
+                    lib = ctypes.CDLL(_lib_path(src))
+                except OSError as e:
+                    raise DeviceFault(f"cannot load the kernels of {src}: {e}") from e
                 for fname, argtypes in api.items():
                     fn = getattr(lib, fname)
                     fn.argtypes = argtypes
@@ -199,14 +235,14 @@ def _fn(name: str):
 
 
 def launch(kernel: str | tuple, cfunc: str, device: torch.device, *args) -> None:
-    """Call one launch API on `device`'s current stream; raise on a launch
-    error, count the launch otherwise: once for each kernel named, where a
-    fused launch runs the bodies of several."""
+    """Call one launch API on `device`'s current stream; raise DeviceFault
+    on a launch error, count the launch otherwise: once for each kernel
+    named, where a fused launch runs the bodies of several."""
     fn = _fn(cfunc)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{cfunc}: CUDA launch failed with error {rc}")
+        raise DeviceFault(f"{cfunc}: CUDA launch failed with error {rc}")
     with _lock:  # device Writers and Readers on several threads launch at once
         for k in (kernel,) if isinstance(kernel, str) else kernel:
             launches[k] += 1

@@ -10,7 +10,10 @@ default) is the `device` of every Writer and Reader the CLI builds, so the
 HUFFMAN, ANS0, ANS1 and RANGE entropy stages run on the card, block events
 (-v 3 and above) included. Without a card, --device cuda exits with an
 error before any output file is created; the CLI never moves to the host
-on its own. The -y header table parses headers only, on the host.
+on its own. A failure of the card during a run (a DeviceFault: a refused
+launch, a failed kernel build, an error of the CUDA context) prints the
+fault and exits with ERR_UNKNOWN, never with a corrupt input's code. The
+-y header table parses headers only, on the host.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from .. import (LEVEL_PRESETS, DEFAULT_BLOCK_SIZE, Reader, Writer, KanziError,
 from ..core import (ERR_CREATE_COMPRESSOR, ERR_CREATE_DECOMPRESSOR,
                     ERR_INVALID_PARAM, ERR_MISSING_PARAM, ERR_OPEN_FILE,
                     ERR_OVERWRITE_FILE, ERR_CREATE_FILE, ERR_PROCESS_BLOCK,
-                    ERR_INVALID_FILE, EventType)
+                    ERR_INVALID_FILE, ERR_UNKNOWN, EventType)
 from .infoprinter import COMPRESSION, DECOMPRESSION, INFO, InfoPrinter
 
 _APP_HEADER = f"kanzi_tpu_torch {__version__} (C) 2026"
@@ -497,9 +500,13 @@ def main(argv: list[str] | None = None) -> int:
             import copy
             sub = copy.copy(a)
             sub.jobs = jobs
-        if a.mode == "c":
-            return _compress_one(sub, in_path, _out_path_for(in_path), listener)
-        return _decompress_one(sub, in_path, _out_path_for(in_path), listener)
+        try:
+            if a.mode == "c":
+                return _compress_one(sub, in_path, _out_path_for(in_path), listener)
+            return _decompress_one(sub, in_path, _out_path_for(in_path), listener)
+        except _kernels.DeviceFault as e:
+            print(f"Device fault while processing '{in_path}': {e}", file=sys.stderr)
+            return ERR_UNKNOWN
 
     res = 0
     if len(inputs) > 1 and a.jobs > 1 and a.verbose > 1:

@@ -626,7 +626,7 @@ def main_path_cases(raw: np.ndarray, card):
         a = (s["bufs"], s["nbytes"], s["states0"], s["f2s"], s["dtabs"], s["ngroups"],
              s["lr"])
         R = a[0].shape[0]
-        return ([R, glen, 4], lambda: ops_ans.decode_chunks(*a, order, glen),
+        return ([R, glen, 4], lambda: ops_ans.decode_chunks(*a, order, glen, True),
                 bound(nbytes_of(*a) + R * glen * 4 + R * 4,
                       12 * 4 * int(batch["ngroups"].sum())))
 
@@ -651,8 +651,10 @@ def main_path_cases(raw: np.ndarray, card):
     s = to_port_state(batch, card)
     a8 = (s["bufs"], s["nbytes"], s["rng_tables"], s["f2s"], s["shifts"], s["nvalid"])
     R, glen = a8[0].shape[0], range_device._CHUNK
-    yield ("range_decode", [R, glen], lambda: ops_range.decode_chunks(*a8, glen),
-           bound(nbytes_of(*a8) + R * glen + R * 4, 30 * R * glen), {})
+    # the engine's call: each row's bits and the host rules' slot bound
+    yield ("range_decode", [R, glen],
+           lambda: ops_range.decode_chunks(*a8, glen, s["nbits"], s["bound"]),
+           bound(nbytes_of(*a8, s["nbits"], s["bound"]) + R * glen + R * 4, 30 * R * glen), {})
     del a8, s
 
     padded = padded_block(raw[0], card)

@@ -379,7 +379,10 @@ __device__ __forceinline__ uint64_t window8(const uint8_t* buf, int64_t n,
 
 // The chain of one row: ng groups, states 3, 2, 1, 0 sharing the cursor.
 // Returns the bytes consumed (> nb where a read passed the stream's end).
-template <int kOrder, bool kShared, bool kWide>
+// kHost: the host decoder's int state, shifted down and compared with
+// ANS_TOP signed (a state with bit 31 set: only a hostile stream has one);
+// else kanzi_tpu's u32 state.
+template <int kOrder, bool kShared, bool kWide, bool kHost>
 __device__ __forceinline__ int64_t walk(const uint2* tab, const uint8_t* sym,
                                         const uint8_t* buf, int64_t nb,
                                         const unsigned* st0, int lr, int64_t ng,
@@ -403,8 +406,9 @@ __device__ __forceinline__ int64_t walk(const uint2* tab, const uint8_t* sym,
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
             const int j = 3 - jj;
-            unsigned y = (kWide ? e[j].x : e[j].x >> 8) * (st[j] >> lr) + e[j].y;
-            if (y < kAnsTop) {
+            const unsigned down = kHost ? (unsigned)((int)st[j] >> lr) : st[j] >> lr;
+            unsigned y = (kWide ? e[j].x : e[j].x >> 8) * down + e[j].y;
+            if (kHost ? (int)y < (int)kAnsTop : y < kAnsTop) {
                 y = (y << 16) | (unsigned)(win >> 48);
                 win <<= 16;
                 n += 2;
@@ -467,7 +471,7 @@ ans_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
                   const int* __restrict__ lrs, int order, int64_t G,
                   int64_t stream_smem, const uint2* __restrict__ scratch,
                   const int* __restrict__ wides, unsigned* __restrict__ out,
-                  int* __restrict__ nread) {
+                  int* __restrict__ nread, int host) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int64_t row = blockIdx.x;
     const int tid = threadIdx.x;
@@ -509,8 +513,11 @@ ans_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
         }
         __syncthreads();
         if (tid == 0) {
-            const int64_t n = wide ? walk<0, true, true>(tab, ssym, sbuf, nb, st0, lr, ng, o)
-                                   : walk<0, true, false>(tab, ssym, sbuf, nb, st0, lr, ng, o);
+            const int64_t n =
+                host ? (wide ? walk<0, true, true, true>(tab, ssym, sbuf, nb, st0, lr, ng, o)
+                             : walk<0, true, false, true>(tab, ssym, sbuf, nb, st0, lr, ng, o))
+                     : (wide ? walk<0, true, true, false>(tab, ssym, sbuf, nb, st0, lr, ng, o)
+                             : walk<0, true, false, false>(tab, ssym, sbuf, nb, st0, lr, ng, o));
             nread[row] = n > nb ? -1 : (int)n;
         }
     } else if (tid == 0) {
@@ -518,12 +525,18 @@ ans_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
         if (!bad) {
             const uint2* tab = scratch + row * F;
             const uint8_t* sym = f2s + row * F;
-            if (wides[row])
-                n = order ? walk<1, false, true>(tab, sym, buf, nb, st0, lr, ng, o)
-                          : walk<0, false, true>(tab, sym, buf, nb, st0, lr, ng, o);
+            if (host && wides[row])
+                n = order ? walk<1, false, true, true>(tab, sym, buf, nb, st0, lr, ng, o)
+                          : walk<0, false, true, true>(tab, sym, buf, nb, st0, lr, ng, o);
+            else if (host)
+                n = order ? walk<1, false, false, true>(tab, sym, buf, nb, st0, lr, ng, o)
+                          : walk<0, false, false, true>(tab, sym, buf, nb, st0, lr, ng, o);
+            else if (wides[row])
+                n = order ? walk<1, false, true, false>(tab, sym, buf, nb, st0, lr, ng, o)
+                          : walk<0, false, true, false>(tab, sym, buf, nb, st0, lr, ng, o);
             else
-                n = order ? walk<1, false, false>(tab, sym, buf, nb, st0, lr, ng, o)
-                          : walk<0, false, false>(tab, sym, buf, nb, st0, lr, ng, o);
+                n = order ? walk<1, false, false, false>(tab, sym, buf, nb, st0, lr, ng, o)
+                          : walk<0, false, false, false>(tab, sym, buf, nb, st0, lr, ng, o);
         }
         nread[row] = (bad || n > nb) ? -1 : (int)n;
     }
@@ -575,16 +588,17 @@ int kz_ans_encode_u16(const void* syms, const void* ngroups, const void* tables,
 // bufs (B, S) uint8, nbytes (B,) int32, states0 (B, 4) u32, f2s (B, F)
 // uint8, dtabs (B, 2, T) int32 planes freq, cumFreq (T = 256 or 65536),
 // ngroups (B,) int32, lrs (B,) int32, scratch of scratch_bytes (at least
-// kz_ans_decode_scratch's) -> out (B, G, 4) uint8, nread (B,) int32 (-1: a
-// read past nbytes, or a logRange the map cannot hold). Where rows read
-// scratch tables, two launches build them first (each row's wide flag, then
-// the tables); then one CTA per row.
+// kz_ans_decode_scratch's), host (the host decoder's signed state, 0 or
+// 1) -> out (B, G, 4) uint8, nread (B,) int32 (-1: a read past nbytes, or a
+// logRange the map cannot hold). Where rows read scratch tables, two
+// launches build them first (each row's wide flag, then the tables); then
+// one CTA per row.
 int kz_ans_decode(const void* bufs, int64_t S, const void* nbytes,
                   const void* states0, const void* f2s, int64_t F,
                   const void* dtabs, int64_t T, const void* ngroups,
                   const void* lrs, int64_t order, int64_t B, int64_t G,
                   void* out, void* nread, void* scratch, int64_t scratch_bytes,
-                  void* stream) {
+                  int64_t host, void* stream) {
     if (B <= 0) return (int)cudaGetLastError();
     const DecLayout l = dec_layout(S, F, order, B);
     if (scratch_bytes < l.scratch) return (int)cudaErrorInvalidValue;
@@ -609,7 +623,7 @@ int kz_ans_decode(const void* bufs, int64_t S, const void* nbytes,
         (const uint8_t*)bufs, S, (const int*)nbytes, (const unsigned*)states0,
         (const uint8_t*)f2s, F, (const unsigned*)dtabs, T, (const int*)ngroups,
         (const int*)lrs, (int)order, G, l.stream_smem, (const uint2*)scratch, wides,
-        (unsigned*)out, (int*)nread);
+        (unsigned*)out, (int*)nread, (int)(host != 0));
     return (int)cudaGetLastError();
 }
 

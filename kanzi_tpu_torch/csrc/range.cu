@@ -53,8 +53,16 @@
 //   into shared memory up front, as the plain version's `reads`, indexed
 //   by the read count; the walker holds the next two in registers;
 // - the symbols staged in shared memory and written out by all threads.
-// A read whose bits reach past the row's byte count returns 0 there and
-// makes the row's nreads -1, the error flag the host reads back.
+// A read whose bits reach past the row's bits returns 0 there and makes
+// the row's nreads -1, the error flag the host reads back.
+// The engine's launch (`bound` given) follows the host decoder
+// (native/src/range.cpp decodeByte) on hostile rows too: the state is u64
+// as the host's, the quotient is checked against the host's slot table
+// (grown to the block's largest, its stale slots in the row), and a range
+// of 0 or a third word a byte flags the row, where the host decoder throws
+// or reads on to the stream's end. A slot table past 4096 entries (logRange
+// 13-15) takes the wide variant: slot -> symbol in shared memory, the
+// (cumFreq, freq) pair read by symbol.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -290,13 +298,20 @@ range_encode_kernel(const uint8_t* __restrict__ syms, int64_t N,
 }
 
 constexpr int kDecThreads = 256;
-constexpr int64_t kSlots = 4096;
+constexpr int64_t kSlots = 4096;        // a narrow slot table (logRange <= 12)
+constexpr int64_t kWideSlots = 32768;   // the format's logRange 15
 constexpr int64_t kStage = 32768;       // symbols staged per segment
 constexpr int64_t kSmemMax = 232448;    // dynamic shared memory of a CTA
-// slot table (cumFreq, freq) 8 bytes a slot, slot -> symbol 1 byte a slot,
-// the row's tables 2048 bytes, then the reads and the symbol stage
-constexpr int64_t kTabBytes = kSlots * 9 + 2048;
-constexpr int64_t kReadsCap = (kSmemMax - kTabBytes - kStage) / 4;
+// narrow: slot table (cumFreq, freq) 8 bytes a slot, slot -> symbol 1 byte
+// a slot, the row's tables 2048 bytes; wide: slot -> symbol and the
+// tables, the pair read from the tables by symbol. Then the reads and the
+// symbol stage. Each slot table has one slot more (index F, a copy of F -
+// 1's), for a strict quotient past the table, which the row flags anyway.
+constexpr int64_t kSymPad = 16;         // slot -> symbol: F + 1 bytes, aligned
+__host__ __device__ constexpr int64_t tab_bytes(bool wide) {
+    return wide ? kWideSlots + kSymPad + 2048
+                : (kSlots + 1) * 8 + kSlots + kSymPad + 2048;
+}
 
 // The k-th 28-bit read: bits 60 + 28k .. of the row, zero past nb
 __device__ __forceinline__ unsigned read28(const uint8_t* buf, int64_t nb,
@@ -310,23 +325,27 @@ __device__ __forceinline__ unsigned read28(const uint8_t* buf, int64_t nb,
     return (unsigned)((win >> (12 - (int)(off & 7))) & 0xFFFFFFFull);
 }
 
-// The quotient min(d / r2, 4095) (d, r2 < 2^60; 4095 where r2 == 0) in
-// two halves. estimate(): float32 d * rcp(r2), capped at 4096 and
-// truncated. rcp.approx is within 1 ulp, so the estimate's relative error
-// is below 2^-21 and it lies within 1 of the exact quotient capped at 4096
-// (r2 == 0 gives rcp +inf and 4096). correct(): one 64-bit multiply-compare
-// moves it by 1; q * r2 <= d + r2 < 2^61 does not overflow.
-__device__ __forceinline__ unsigned estimate(uint64_t d, uint64_t r2) {
+// The quotient min(d / r2, cap) (r2 == 0 gives cap) in two halves.
+// estimate(): float32 d * rcp(r2), capped at capf and truncated. rcp.approx
+// is within 1 ulp, so the estimate's relative error is below 2^-21 and it
+// lies within 1 of the exact quotient capped at capf (<= 32768); r2 == 0
+// gives rcp +inf and capf. correct(): one 64 x 64 -> 128-bit multiply and a
+// compare move it by 1 (d may use all 64 bits: the host decoder's state).
+__device__ __forceinline__ unsigned estimate(uint64_t d, uint64_t r2, float capf) {
     float rcp;
     asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rcp) : "f"(__ull2float_rn(r2)));
-    return __float2uint_rz(fminf(__fmul_rn(__ull2float_rn(d), rcp), 4096.0f));
+    return __float2uint_rz(fminf(__fmul_rn(__ull2float_rn(d), rcp), capf));
 }
 
-__device__ __forceinline__ unsigned correct(unsigned q, uint64_t d, uint64_t r2) {
+// kWide: q up to 32768 and r2 below 2^52 can carry q * r2 past 2^64, so
+// its high half is checked too; with 4096 slots they cannot.
+template <bool kWide>
+__device__ __forceinline__ unsigned correct(unsigned q, uint64_t d, uint64_t r2,
+                                            unsigned cap) {
     const uint64_t p = (uint64_t)q * r2;
-    if (p > d) --q;
+    if ((kWide && __umul64hi((uint64_t)q, r2) != 0ull) || p > d) --q;
     else if (d - p >= r2) ++q;
-    return q < 4095u ? q : 4095u;
+    return q < cap ? q : cap;
 }
 
 struct DecLayout {
@@ -336,16 +355,23 @@ struct DecLayout {
     int64_t smem;     // dynamic shared memory of the launch
 };
 
-__host__ __device__ DecLayout dec_layout(int64_t S, int64_t glen) {
+__host__ __device__ DecLayout dec_layout(int64_t S, int64_t glen, bool wide) {
     DecLayout l;
+    const int64_t reads_cap = (kSmemMax - tab_bytes(wide) - kStage) / 4;
     l.kmax = 8 * S < 60 ? 0 : (8 * S - 60) / 28 + 1;
-    l.kcap = l.kmax + 1 < kReadsCap ? l.kmax + 1 : kReadsCap;
+    l.kcap = l.kmax + 1 < reads_cap ? l.kmax + 1 : reads_cap;
     const int64_t g = (glen + 15) & ~(int64_t)15;
     l.stage = g < 16 ? 16 : (g < kStage ? g : kStage);
-    l.smem = kTabBytes + 4 * l.kcap + l.stage;
+    l.smem = tab_bytes(wide) + 4 * l.kcap + l.stage;
     return l;
 }
 
+// kWide: a slot table of 32768 entries (the row's logRange above 12, or an
+// earlier chunk's); its (cumFreq, freq) pair is read from the row's tables
+// by symbol, one load after the symbol's. kStrict (`bound` given): the
+// host decoder's rules (module comment); else kanzi_tpu's. Both are
+// template arguments so that each variant's step carries only its own work.
+template <bool kWide, bool kStrict>
 __global__ void __launch_bounds__(kDecThreads)
 range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
                     const int* __restrict__ nbytes,
@@ -353,12 +379,15 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
                     const uint8_t* __restrict__ f2s,
                     const int* __restrict__ shifts,
                     const int* __restrict__ nvalid, int64_t glen,
-                    uint8_t* __restrict__ out, int* __restrict__ nreads) {
+                    uint8_t* __restrict__ out, int* __restrict__ nreads,
+                    const int* __restrict__ nbits,
+                    const int* __restrict__ bound) {
+    constexpr int64_t F = kWide ? kWideSlots : kSlots;
     extern __shared__ __align__(16) unsigned char smem[];
-    const DecLayout l = dec_layout(S, glen);
-    uint2* comb = (uint2*)smem;
-    uint8_t* slot_sym = (uint8_t*)(comb + kSlots);
-    unsigned* tab = (unsigned*)(slot_sym + kSlots);
+    const DecLayout l = dec_layout(S, glen, kWide);
+    uint2* comb = (uint2*)smem;                          // narrow only
+    uint8_t* slot_sym = kWide ? (uint8_t*)smem : (uint8_t*)(comb + kSlots + 1);
+    unsigned* tab = (unsigned*)(slot_sym + F + kSymPad);
     unsigned* reads = tab + 512;
     uint8_t* stage = (uint8_t*)(reads + l.kcap);
 
@@ -367,33 +396,46 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
     const uint8_t* buf = bufs + row * S;
     int64_t nb = nbytes[row];
     nb = nb < 0 ? 0 : (nb > S ? S : nb);
+    // the row's bits: the reads wholly inside them are its own
+    int64_t nbit = nbits ? (int64_t)nbits[row] : 8 * nb;
+    nbit = nbit < 0 ? 0 : (nbit > 8 * nb ? 8 * nb : nbit);
     const int sh = clamp_shift(shifts[row]);
     int64_t nv = nvalid[row];
     nv = nv < 0 ? 0 : (nv > glen ? glen : nv);
     uint8_t* o = out + row * glen;
+    // the host decoder's rules: a u64 state, and the quotient checked
+    // against its slot table; kanzi_tpu's: 60 bits, the quotient capped
+    constexpr uint64_t m = kStrict ? ~0ull : kM60;
+    constexpr unsigned capq = kStrict ? (unsigned)F : (unsigned)(F - 1);
+    const unsigned lim = kStrict ? (unsigned)(bound[row] < 0 ? 0 : bound[row]) : 0u;
 
     for (int i = tid; i < 512; i += kDecThreads) tab[i] = (unsigned)tables[row * 512 + i];
 #pragma unroll 4
     for (int64_t k = tid; k < l.kcap; k += kDecThreads) reads[k] = read28(buf, nb, k);
     __syncthreads();
-    // slot -> (cumFreq, freq) as u32, the plain version's comb, and slot ->
-    // symbol beside it
-    const uint8_t* map = f2s + row * kSlots;
-    for (int i = tid; i < kSlots; i += kDecThreads) {
-        const int sym = map[i];
-        comb[i] = make_uint2(tab[sym], tab[256 + sym]);
+    // slot -> symbol, and (narrow) slot -> (cumFreq, freq) as u32, the
+    // plain version's comb
+    const uint8_t* map = f2s + row * F;
+    for (int i = tid; i <= F; i += kDecThreads) {
+        const int sym = map[i < F ? i : F - 1];
+        if (!kWide) comb[i] = make_uint2(tab[sym], tab[256 + sym]);
         slot_sym[i] = (uint8_t)sym;
     }
     __syncthreads();
 
     // the walker's state lives in thread 0's registers across segments;
-    // `code` holds code - low (mod 2^60), the quotient's dividend
+    // `code` holds code - low (mod 2^64 or 2^60), the quotient's dividend
     uint64_t code = 0, low = 0, rng = kTop;
     int64_t nr = 0;
-    unsigned nx0 = 0, nx1 = 0;
+    bool bad = false;
+    unsigned qmax = 0, nx0 = 0, nx1 = 0;
     auto read_at = [&](int64_t k) -> unsigned {
         k = k < l.kmax ? k : l.kmax;
         return k < l.kcap ? reads[k] : read28(buf, nb, k);
+    };
+    auto entry = [&](unsigned q, uint8_t& sym) -> uint2 {
+        sym = slot_sym[q];
+        return kWide ? make_uint2(tab[sym], tab[256 + sym]) : comb[q];
     };
     if (tid == 0) {
         // the first 60 bits: bytes 0..7 read big-endian, shifted down by 4
@@ -405,6 +447,7 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
         nx0 = read_at(0);
         nx1 = read_at(1);
     }
+    constexpr float capf = (float)F;
     for (int64_t base = 0; base < glen; base += l.stage) {
         const int64_t len = glen - base < l.stage ? glen - base : l.stage;
         const int64_t end = nv - base < len ? nv - base : len;
@@ -413,23 +456,23 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
                 const uint64_t r2 = rng >> sh;
                 // the entry at the estimate loads while the estimate is
                 // checked; a corrected quotient loads again (rarely)
-                const unsigned qe = estimate(code, r2);
-                const unsigned qs = qe < 4095u ? qe : 4095u;
-                uint2 e = comb[qs];
-                uint8_t sym = slot_sym[qs];
-                const unsigned q = correct(qe, code, r2);
-                if (q != qs) {
-                    e = comb[q];
-                    sym = slot_sym[q];
-                }
+                const unsigned qe = estimate(code, r2, capf);
+                const unsigned qs = qe < F - 1 ? qe : (unsigned)(F - 1);
+                uint8_t sym;
+                uint2 e = entry(qs, sym);
+                const unsigned q = correct<kWide>(qe, code, r2, capq);
+                if (q != qs) e = entry(q, sym);     // q == F: the pad slot
                 const uint64_t step = (uint64_t)e.x * r2;
-                low = (low + step) & kM60;
-                code = (code - step) & kM60;
+                low = (low + step) & m;
+                code = (code - step) & m;
                 rng = ((uint64_t)e.y * r2) & kM60;
                 stage[i] = sym;
+                // the host decoder throws at a quotient past its slot
+                // table (a range of 0 emits a third word, flagged below)
+                if (kStrict) qmax = q > qmax ? q : qmax;
                 if (renorm_done(low, rng)) continue;
-                code = ((code << 28) & kM60) | nx0;
-                low = (low << 28) & kM60;
+                code = ((code << 28) & m) | nx0;
+                low = (low << 28) & m;
                 rng = (rng << 28) & kM60;
                 if (renorm_done(low, rng)) {
                     ++nr;
@@ -437,12 +480,15 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
                     nx1 = read_at(nr + 1);
                     continue;
                 }
-                code = ((code << 28) & kM60) | nx1;
-                low = (low << 28) & kM60;
+                code = ((code << 28) & m) | nx1;
+                low = (low << 28) & m;
                 rng = (rng << 28) & kM60;
                 nr += 2;
                 nx0 = read_at(nr);
                 nx1 = read_at(nr + 1);
+                // a third word: the host decoder's loop goes on to the
+                // stream's end (a range of 0 always comes here)
+                if (kStrict) bad |= emits(low, rng);
             }
         }
         __syncthreads();
@@ -450,11 +496,11 @@ range_decode_kernel(const uint8_t* __restrict__ bufs, int64_t S,
         __syncthreads();
     }
     if (tid == 0) {
-        // reads 0 .. kbad-1 lie inside the row's bytes (the plain version
+        // reads 0 .. kbad-1 lie inside the row's bits (the plain version
         // counts them among its kmax + 1)
-        int64_t kbad = 8 * nb < 88 ? 0 : (8 * nb - 88) / 28 + 1;
+        int64_t kbad = nbit < 88 ? 0 : (nbit - 88) / 28 + 1;
         kbad = kbad < l.kmax + 1 ? kbad : l.kmax + 1;
-        const bool err = nr > kbad || (nv > 0 && nb < 8);
+        const bool err = bad || (kStrict && qmax >= lim) || nr > kbad || (nv > 0 && nbit < 60);
         nreads[row] = err ? -1 : (int)nr;
     }
 }
@@ -478,22 +524,31 @@ int kz_range_encode(const void* syms, int64_t N, const void* nvalid,
 }
 
 // bufs (B, S) uint8, nbytes (B,) int32, tables (B, 2, 256) int32, f2s
-// (B, 4096) uint8, shifts (B,) int32, nvalid (B,) int32 -> out (B, glen)
-// uint8, nreads (B,) int32 (-1: a read past nbytes). One CTA per row.
+// (B, F) uint8 with F 4096 or 32768, shifts (B,) int32, nvalid (B,) int32
+// -> out (B, glen) uint8, nreads (B,) int32 (-1: a read past the row's bits,
+// or with `bound` a state the host decoder fails on). nbits (B,) int32 or
+// null: the row's bits (8 * nbytes); bound (B,) int32 or null: the host
+// decoder's rules and slot table sizes. One CTA per row.
 int kz_range_decode(const void* bufs, int64_t S, const void* nbytes,
-                    const void* tables, const void* f2s, const void* shifts,
-                    const void* nvalid, int64_t B, int64_t glen, void* out,
-                    void* nreads, void* stream) {
+                    const void* tables, const void* f2s, int64_t F,
+                    const void* shifts, const void* nvalid, int64_t B,
+                    int64_t glen, void* out, void* nreads, const void* nbits,
+                    const void* bound, void* stream) {
     if (B <= 0) return (int)cudaGetLastError();
-    const DecLayout l = dec_layout(S, glen);
+    if (F != kSlots && F != kWideSlots) return (int)cudaErrorInvalidValue;
+    const bool wide = F == kWideSlots;
+    const DecLayout l = dec_layout(S, glen, wide);
+    auto kernel = wide ? (bound ? range_decode_kernel<true, true>
+                                : range_decode_kernel<true, false>)
+                       : (bound ? range_decode_kernel<false, true>
+                                : range_decode_kernel<false, false>);
     const cudaError_t rc = cudaFuncSetAttribute(
-        range_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
     if (rc != cudaSuccess) return (int)rc;
-    range_decode_kernel<<<(unsigned)B, kDecThreads, (size_t)l.smem,
-                          (cudaStream_t)stream>>>(
+    kernel<<<(unsigned)B, kDecThreads, (size_t)l.smem, (cudaStream_t)stream>>>(
         (const uint8_t*)bufs, S, (const int*)nbytes, (const int*)tables,
         (const uint8_t*)f2s, (const int*)shifts, (const int*)nvalid, glen,
-        (uint8_t*)out, (int*)nreads);
+        (uint8_t*)out, (int*)nreads, (const int*)nbits, (const int*)bound);
     return (int)cudaGetLastError();
 }
 

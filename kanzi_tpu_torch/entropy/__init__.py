@@ -71,7 +71,8 @@ def device_engine(etype: int, device):
     return None
 
 
-def decode_many(etype: int, payloads, out_lens, ctx: dict, map_fn=map) -> list:
+def decode_many(etype: int, payloads, out_lens, ctx: dict, map_fn=map,
+                nbits=None) -> list:
     """Device entropy decode of a batch of blocks' payloads, for a type and
     ctx that `decodes_on_device` accepts: one kernel launch for the batch
     (HUFFMAN, ANS0, ANS1), or one per chunk index with a row per block
@@ -79,8 +80,10 @@ def decode_many(etype: int, payloads, out_lens, ctx: dict, map_fn=map) -> list:
     (the Reader's pool.map). ctx["deviceDecodeHooks"], where set, holds
     the HUFFMAN and ANS launches to take instead ({"huffman": fn, "ans":
     fn}: a mesh's, parallel.mesh_decode_hooks); RANGE has none and decodes
-    on ctx["device"]. Returns per block its uint8 array or the exception
-    that rejected its payload; nothing is retried on the host."""
+    on ctx["device"]. `nbits` (a bit count or None a payload) marks
+    payloads that end inside their last byte. Returns per block its uint8
+    array or the exception that rejected its payload; nothing is retried
+    on the host."""
     if not decodes_on_device(etype, ctx):
         raise ValueError(f"entropy type {etype} does not decode on the device here")
     device = ctx["device"]
@@ -88,13 +91,13 @@ def decode_many(etype: int, payloads, out_lens, ctx: dict, map_fn=map) -> list:
     if etype == HUFFMAN_TYPE:
         from .huffman_device import huffman_decode_many
         return huffman_decode_many(payloads, out_lens, device, map_fn,
-                                   hook=hooks.get("huffman"))
+                                   hook=hooks.get("huffman"), nbits=nbits)
     if etype in (ANS0_TYPE, ANS1_TYPE):
         from .ans_device import ans_decode_many
         return ans_decode_many(payloads, out_lens, 0 if etype == ANS0_TYPE else 1,
-                               device, map_fn, hook=hooks.get("ans"))
+                               device, map_fn, hook=hooks.get("ans"), nbits=nbits)
     from .range_device import range_decode_many
-    return range_decode_many(payloads, out_lens, device)
+    return range_decode_many(payloads, out_lens, device, nbits)
 
 
 def encode(etype: int, data, ctx: dict) -> tuple[bytes, int]:
@@ -129,9 +132,11 @@ def encode(etype: int, data, ctx: dict) -> tuple[bytes, int]:
 
 
 def decode(etype: int, payload: bytes, out_len: int, ctx: dict) -> bytes:
-    """Entropy-decode `out_len` bytes from a byte-aligned payload."""
+    """Entropy-decode `out_len` bytes from a byte-aligned payload (its
+    first ctx["payloadBits"] bits where that is set)."""
+    nbits = ctx.get("payloadBits")
     if etype == NONE_TYPE:
-        if len(payload) < out_len:
+        if (8 * len(payload) if nbits is None else nbits) < 8 * out_len:
             raise ValueError("Not enough data in entropy payload")
         return payload[:out_len]
     if decodes_on_device(etype, ctx):
@@ -143,15 +148,15 @@ def decode(etype: int, payload: bytes, out_len: int, ctx: dict) -> bytes:
         if etype == HUFFMAN_TYPE:
             from .huffman_device import huffman_decode_device
             return huffman_decode_device(payload, out_len, device,
-                                         hook=hooks.get("huffman"))
+                                         hook=hooks.get("huffman"), nbits=nbits)
         if etype in (ANS0_TYPE, ANS1_TYPE):
             from .ans_device import ans_decode_device
             return ans_decode_device(payload, out_len,
                                      0 if etype == ANS0_TYPE else 1, device,
-                                     hook=hooks.get("ans"))
+                                     hook=hooks.get("ans"), nbits=nbits)
         if etype == RANGE_TYPE:
             from .range_device import range_decode_device
-            return range_decode_device(payload, out_len, device)
+            return range_decode_device(payload, out_len, device, nbits)
     if etype == HUFFMAN_TYPE:
         from .huffman import huffman_decode
         return huffman_decode(payload, out_len, ctx)

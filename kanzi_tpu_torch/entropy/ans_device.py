@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import _kernels, native
 from ..core import ERR_PROCESS_BLOCK, KanziError
 from ..ops import ans as ops_ans
 from ..ops.state import to_port_state
@@ -159,55 +159,75 @@ class DeviceANSEngine:
                                    pair_bytes, counts_, states, dst, dst_off)
 
 
-def decode_batch(src: np.ndarray, out_len: int, order: int):
+def decode_batch(src: np.ndarray, out_len: int, order: int, nbits=None):
     """The host half of one block's decode, for a payload of a block longer
     than 32 bytes: ({bufs, nbytes, states0, f2s, dtabs, ngroups, lr} numpy
     rows of the device chunks, or None where there are none; (the chunk
-    flags, the single symbols of flag-2 chunks)). Every array is the
-    caller's own: the rows are copied out of the prepare's pooled scratch,
-    each bufs row wide enough for its chunk's raw tail. Raises as
-    ans_decode_device does."""
+    flags, the single symbols of flag-2 chunks, and of the device chunks
+    their lengths and stream lengths)). Every array is the caller's own:
+    the rows are copied out of the prepare's pooled scratch. A row's
+    `nbytes` are its stream's pairs, before its raw tail (0 where the
+    stream is shorter than the tail). Raises as ans_decode_device does."""
     dtabs, f2s, states, bufs, buf_sz, flags, aux, lrs = \
-        native.ans_dec_prepare(src, out_len, order)
+        native.ans_dec_prepare(src, out_len, order, nbits)
     dev = np.nonzero(flags == 0)[0]
     if not len(dev):
-        return None, (flags, aux)
+        return None, (flags, aux, None, None)
     chunk = _chunk_size(order)
     sizes = np.minimum(chunk, out_len - dev * chunk)
     ngroups = ((sizes & ~3) // 4).astype(np.int32)
-    nbytes = buf_sz[dev] - (sizes & 3)           # the pairs, before the tail
-    if (nbytes < 0).any():
-        raise KanziError("ans decode: a chunk's stream is shorter than its "
-                         "raw tail", ERR_PROCESS_BLOCK)
+    nbytes = np.maximum(buf_sz[dev] - (sizes & 3), 0)   # the pairs, before the tail
     width = (256 if order == 1 else 1) << int(lrs[dev].max())
     return ({"bufs": bufs[dev, :max(int(buf_sz[dev].max()), 1)], "nbytes": nbytes,
              "states0": states[dev], "f2s": f2s[dev, :width],
              "dtabs": dtabs[dev], "ngroups": ngroups, "lr": lrs[dev]},
-            (flags, aux))
+            (flags, aux, sizes, buf_sz[dev].copy()))
+
+
+def host_buffer_rows(rb: dict, sizes: np.ndarray, buf_sz: np.ndarray) -> dict:
+    """decode_batch's rows of one block as the host decoder reads them
+    past a chunk's own stream (a hostile payload: renorm reads beyond its
+    pairs, or a stream shorter than its tail). The host decodes every
+    chunk of a block from one buffer, grown to 2 * the chunk's length
+    (256 at least) + 64 bytes and never cleared: a chunk's stream, then 64
+    zeros, then what earlier chunks left there (zeros where none wrote).
+    It never reads past that buffer and never fails for it. Each row here
+    is that buffer as its chunk finds it, with `nbytes` its whole width, so
+    the decode reads the host's bytes and stops where the host stops."""
+    widths = np.maximum(2 * sizes, 256) + 64
+    bufs = np.zeros((len(sizes), int(widths.max())), np.uint8)
+    held = np.zeros(bufs.shape[1], np.uint8)      # the host's buffer
+    for r, sz in enumerate(buf_sz.tolist()):
+        held[:sz] = rb["bufs"][r, :sz]
+        held[sz:sz + 64] = 0
+        bufs[r, :widths[r]] = held[:widths[r]]
+    return dict(rb, bufs=bufs, nbytes=widths.astype(np.int32))
 
 
 def _dec_prep(args):
-    src, out_len, order = args
+    src, out_len, order, nbits = args
     if out_len <= 32:                    # raw small block
-        if len(src) < out_len:
-            raise RuntimeError("ans decode: payload shorter than the block")
+        if (8 * len(src) if nbits is None else nbits) < 8 * out_len:
+            raise KanziError("ans decode: payload shorter than the block",
+                             ERR_PROCESS_BLOCK)
         return src[:out_len].copy()
-    return decode_batch(src, out_len, order)
+    return decode_batch(src, out_len, order, nbits)
 
 
 def decode_rows(batch: dict, order: int, glen: int, device) -> tuple:
     """ONE chunk decode launch on `device` for a batch's stacked {bufs,
-    nbytes, states0, f2s, dtabs, ngroups, lr} rows: (symbols (R, glen, 4),
-    nread (R,)) as numpy arrays."""
+    nbytes, states0, f2s, dtabs, ngroups, lr} rows, with the host decoder's
+    rule for a hostile state: (symbols (R, glen, 4), nread (R,)) as numpy
+    arrays."""
     st = to_port_state(batch, device)
     syms, nread = ops_ans.decode_chunks(
         st["bufs"], st["nbytes"], st["states0"], st["f2s"], st["dtabs"],
-        st["ngroups"], st["lr"], order, glen)
+        st["ngroups"], st["lr"], order, glen, host=True)
     return syms.cpu().numpy(), nread.cpu().numpy()
 
 
 def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map,
-                    hook=None) -> list:
+                    hook=None, nbits=None) -> list:
     """Decode the ANS payloads of a batch of blocks with ONE chunk decode
     launch on `device` for the device chunks of every block (the rows of
     all blocks together: the f2s width of the batch's widest logRange,
@@ -217,14 +237,18 @@ def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map,
     assembly run through `map_fn` (the Reader's pool.map). Returns per
     block its uint8 array, byte-identical to the host decoder for any
     logRange the chunk headers carry, or the exception that rejected it:
-    RuntimeError from the host prepare, KanziError where a chunk's renorm
-    reads leave its stream, and for every block with device chunks the
-    error of a launch or hook that raised. Nothing is retried on the
-    host."""
+    NativeError from the host prepare, and for every block with device
+    chunks the rejection (device_io.REJECTIONS) a hook raised. A launch or
+    read-back that fails raises DeviceFault, as does an error of the card
+    inside a hook. A block whose decode reads past a chunk's own stream,
+    which only a hostile payload does, is decoded again in a second
+    launch on the host decoder's buffer (host_buffer_rows), so that it
+    decodes to the host's bytes as the host does, without an error.
+    Nothing is retried on the host."""
     device = torch.device(device)
     preps = device_io.each(map_fn, _dec_prep, [
-        (np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p, n, order)
-        for p, n in zip(payloads, out_lens)])
+        (np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p, n, order, b)
+        for p, n, b in zip(payloads, out_lens, nbits or [None] * len(payloads))])
     rows, lo = [], {}
     nrows = 0
     for i, p in enumerate(preps):
@@ -232,14 +256,31 @@ def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map,
             rows.append(p[0])
             lo[i] = nrows
             nrows += len(p[0]["ngroups"])
-    syms = nread = failed = None
-    if rows:
-        batch = device_io.stack(rows)
+    decoded, failed = {}, None           # block -> (bufs, symbols, nread)
+
+    def run(block_rows, at):
+        batch = device_io.stack(block_rows)
         glen = int(batch["ngroups"].max())
-        try:
+        with _kernels.card_errors("ans_decode"):
             syms, nread = (hook(batch, order, glen) if hook
                            else decode_rows(batch, order, glen, device))
-        except (KanziError, ValueError, RuntimeError) as e:
+        for (i, r0), rb in zip(at, block_rows):
+            n = len(rb["ngroups"])
+            decoded[i] = rb["bufs"], syms[r0:r0 + n], nread[r0:r0 + n]
+
+    if rows:
+        try:
+            run(rows, list(lo.items()))
+            # a block whose renorm reads or tail left a chunk's stream
+            # decodes again on the host's buffer
+            redo = [i for i in lo
+                    if ((decoded[i][2] < 0)
+                        | (decoded[i][2] + (preps[i][1][2] & 3) > preps[i][1][3])).any()]
+            if redo:
+                again = [host_buffer_rows(preps[i][0], *preps[i][1][2:]) for i in redo]
+                at = np.cumsum([0] + [len(rb["ngroups"]) for rb in again[:-1]])
+                run(again, list(zip(redo, at.tolist())))
+        except device_io.REJECTIONS as e:
             failed = e
     chunk = _chunk_size(order)
 
@@ -251,13 +292,12 @@ def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map,
             return p
         if failed is not None and i in lo:
             raise failed
-        rb, (flags, aux) = p
+        rb, (flags, aux, _, _) = p
         out_len = out_lens[i]
         out = np.empty(out_len, dtype=np.uint8)
         if rb is not None:
-            r0 = lo[i]
-            nr = nread[r0:r0 + len(rb["ngroups"])]
-            if (nr < 0).any():
+            bufs, syms, nr = decoded[i]
+            if (nr < 0).any():           # not even on the host's buffer
                 raise KanziError("ans decode: renorm reads left a chunk's stream",
                                  ERR_PROCESS_BLOCK)
             for r, c in enumerate(np.nonzero(flags == 0)[0]):
@@ -267,12 +307,12 @@ def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map,
                 e4 = 4 * g
                 if order == 0:
                     # group g -> block[4g..4g+3] = states 3, 2, 1, 0
-                    out[start:start + e4] = syms[r0 + r, :g, ::-1].reshape(-1)
+                    out[start:start + e4] = syms[r, :g, ::-1].reshape(-1)
                 else:
                     for j in range(4):
-                        out[start + j * g:start + (j + 1) * g] = syms[r0 + r, :g, j]
+                        out[start + j * g:start + (j + 1) * g] = syms[r, :g, j]
                 nf = int(nr[r])
-                out[start + e4:start + size] = rb["bufs"][r, nf:nf + size - e4]
+                out[start + e4:start + size] = bufs[r, nf:nf + size - e4]
         for c in np.nonzero(flags == 2)[0]:
             start = int(c) * chunk
             out[start:start + min(chunk, out_len - start)] = aux[c]
@@ -281,14 +321,15 @@ def ans_decode_many(payloads, out_lens, order: int, device, map_fn=map,
     return device_io.each(map_fn, finish, range(len(preps)))
 
 
-def ans_decode_device(payload, out_len: int, order: int, device, hook=None) -> bytes:
-    """Decode one ANS payload with the device pipeline (a batch of one,
-    through `hook` where given); a rejected payload raises as
-    ans_decode_many says."""
+def ans_decode_device(payload, out_len: int, order: int, device, hook=None,
+                      nbits=None) -> bytes:
+    """Decode one ANS payload (its first `nbits` bits, all of it by
+    default) with the device pipeline (a batch of one, through `hook` where
+    given); a rejected payload raises as ans_decode_many says."""
     if out_len == 0:
         return b""
     return device_io.one(ans_decode_many([payload], [out_len], order, device,
-                                         hook=hook))
+                                         hook=hook, nbits=[nbits]))
 
 
 def ans_encode_device(buf, order: int, device) -> tuple[bytes, int]:

@@ -16,6 +16,11 @@ The Reader's batched decode goes through `each` (a per-block step on its
 pool, a rejected block's exception kept as its result), `stack` (the
 blocks' device rows as one launch's inputs) and `one` (a single block's
 result, for the per-block path).
+
+Only the data's errors are a block's result (`REJECTIONS`: the port's
+KanziError, ValueError, and the host library's NativeError). An error of
+the card raises DeviceFault (`_kernels.card_errors`, around every launch
+and read-back here) and leaves the batch at once.
 """
 
 from __future__ import annotations
@@ -25,7 +30,12 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import _kernels, native
 from ..core import KanziError
+
+# the errors that reject a payload; anything else, DeviceFault first, is
+# not the data's and propagates
+REJECTIONS = (KanziError, ValueError, native.NativeError)
 
 
 class HostResult:
@@ -41,7 +51,8 @@ class HostResult:
         """The outputs as numpy arrays, in the order the launch gave them."""
         if self._np is None:
             if self._event is not None:
-                self._event.synchronize()
+                with _kernels.card_errors("read-back"):
+                    self._event.synchronize()
             self._np = tuple(o.numpy() for o in self._outs)
             self._keep = None
         return self._np
@@ -84,9 +95,10 @@ def launch(stream, fn) -> HostResult:
     copied into pinned host tensors behind an event, and the device
     tensors stay referenced until the event has fired."""
     if stream is None:
-        _keep, outs = fn()
+        with _kernels.card_errors("launch"):
+            _keep, outs = fn()
         return HostResult(outs, None, None)
-    with on(stream):
+    with _kernels.card_errors("launch"), on(stream):
         keep, outs = fn()
         hosts = []
         for o in outs:
@@ -109,13 +121,14 @@ def encode_block(engine, src: np.ndarray, slack: int) -> tuple[bytes, int]:
 
 def each(map_fn, fn, items) -> list:
     """[fn(x) for x in items] through `map_fn` (a pool's map, or map); an
-    item whose fn raises gets that exception as its result, so one
-    rejected block leaves the others of its batch decodable and the
-    caller raises it under the block's id."""
+    item whose fn raises one of REJECTIONS gets that exception as its
+    result, so one rejected block leaves the others of its batch decodable
+    and the caller raises it under the block's id. Any other exception (a
+    DeviceFault) propagates from the map at once."""
     def guarded(x):
         try:
             return fn(x)
-        except (KanziError, ValueError, RuntimeError) as e:
+        except REJECTIONS as e:
             return e
     return list(map_fn(guarded, items))
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import _kernels, native
 from ..core import ERR_PROCESS_BLOCK, KanziError
 from ..ops import huffman as ops_huffman
 from ..ops.state import to_port_state
@@ -177,8 +177,8 @@ def _dec_prep(args):
     """The host half of one block's decode: the prepare's tables, lanes,
     chunk flags and raw bytes (the pooled tables and lanes copied, before
     this thread's next prepare overwrites them)."""
-    src, out_len = args
-    dtables, lanes, flags, aux = native.huffman_dec_prepare(src, out_len)
+    src, out_len, nbits = args
+    dtables, lanes, flags, aux = native.huffman_dec_prepare(src, out_len, nbits)
     return dtables.copy(), lanes.copy(), flags, aux
 
 
@@ -197,7 +197,8 @@ def decode_rows(batch: dict, device) -> tuple:
     return device_io.launch(stream, run).get()
 
 
-def huffman_decode_many(payloads, out_lens, device, map_fn=map, hook=None) -> list:
+def huffman_decode_many(payloads, out_lens, device, map_fn=map, hook=None,
+                        nbits=None) -> list:
     """Decode the Huffman payloads of a batch of blocks with ONE lane
     decode launch on `device` for the lanes of every block (each block's
     table indices offset by the tables before it), or through `hook`, a
@@ -205,14 +206,15 @@ def huffman_decode_many(payloads, out_lens, device, map_fn=map, hook=None) -> li
     sharded decode, parallel.mesh_decode_hooks). The host prepares and
     the per-block assembly run through `map_fn` (the Reader's pool.map).
     Returns per block its uint8 array, byte-identical to the host decoder,
-    or the exception that rejected it: RuntimeError from the host
-    prepare, KanziError for a lane whose table index the kernel flags, and
-    for every block with lanes the error of a launch or hook that raised.
-    Nothing is retried on the host."""
+    or the exception that rejected it: NativeError from the host prepare,
+    KanziError for a lane whose table index the kernel flags, and for
+    every block with lanes the rejection (device_io.REJECTIONS) a hook
+    raised. A launch or read-back that fails raises DeviceFault, as does
+    an error of the card inside a hook. Nothing is retried on the host."""
     device = torch.device(device)
     preps = device_io.each(map_fn, _dec_prep, [
-        (np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p, n)
-        for p, n in zip(payloads, out_lens)])
+        (np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p, n, b)
+        for p, n, b in zip(payloads, out_lens, nbits or [None] * len(payloads))])
     rows, spans, table_base = [], {}, 0
     lane_base = 0
     for i, p in enumerate(preps):
@@ -229,8 +231,9 @@ def huffman_decode_many(payloads, out_lens, device, map_fn=map, hook=None) -> li
     if rows:
         batch = device_io.stack(rows)
         try:
-            syms, lane_bad = hook(batch) if hook else decode_rows(batch, device)
-        except (KanziError, ValueError, RuntimeError) as e:
+            with _kernels.card_errors("decode_lanes"):
+                syms, lane_bad = hook(batch) if hook else decode_rows(batch, device)
+        except device_io.REJECTIONS as e:
             failed = e
 
     def finish(i):
@@ -265,14 +268,15 @@ def huffman_decode_many(payloads, out_lens, device, map_fn=map, hook=None) -> li
     return device_io.each(map_fn, finish, range(len(preps)))
 
 
-def huffman_decode_device(payload, out_len: int, device, hook=None) -> bytes:
-    """Decode one Huffman entropy payload with the device pipeline (a
-    batch of one, through `hook` where given); a rejected payload raises as
-    huffman_decode_many says."""
+def huffman_decode_device(payload, out_len: int, device, hook=None,
+                          nbits=None) -> bytes:
+    """Decode one Huffman entropy payload (its first `nbits` bits, all of
+    it by default) with the device pipeline (a batch of one, through `hook`
+    where given); a rejected payload raises as huffman_decode_many says."""
     if out_len == 0:
         return b""
     return device_io.one(huffman_decode_many([payload], [out_len], device,
-                                             hook=hook))
+                                             hook=hook, nbits=[nbits]))
 
 
 def huffman_encode_device(buf, device) -> tuple[bytes, int]:

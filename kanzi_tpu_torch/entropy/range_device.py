@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import _kernels, native
 from ..core import ERR_PROCESS_BLOCK, KanziError
 from ..ops import range as ops_range
 from ..ops.state import to_port_state
@@ -30,6 +30,10 @@ from . import device_io
 
 _CHUNK = native.RANGE_CHUNK
 _BUF_CAP = 2 * _CHUNK + 8192   # a chunk's coder stream, and slack
+# the most any chunk can read: 60 bits, then two 28-bit words a byte (a
+# third word a byte is a state the decode flags), and a guard; a row cut
+# at _BUF_CAP that fails decodes again with this much
+_BUF_FULL = 7 * _CHUNK + 64
 
 
 class DeviceRangeEngine:
@@ -137,25 +141,59 @@ def range_encode_device(buf, device) -> tuple[bytes, int]:
     return device_io.encode_block(DeviceRangeEngine(device), src, 8192)
 
 
-def chunk_batch(src: np.ndarray, bit_pos: int, size: int):
+def chunk_batch(src: np.ndarray, bit_pos: int, size: int, nbits=None,
+                held: np.ndarray | None = None, cap: int = _BUF_CAP):
     """The host half of one step of range_decode_device: parse the chunk
-    header at `bit_pos`. Returns (the bit position past the header, the
-    single symbol of a header-only chunk or None, and the {bufs, nbytes,
-    rng_tables, f2s, shifts, nvalid} numpy row of a chunk to decode)."""
+    header at `bit_pos` of the payload's first `nbits` bits (all of it by
+    default). `held` is the host decoder's slot table as the block's
+    earlier chunks left it (empty for the first): the host decoder grows
+    it to the largest table of the block and never clears it, so a
+    hostile quotient past this chunk's table reads an earlier chunk's
+    slot, and one past the whole table throws. Returns (the bit position
+    past the header, the single symbol of a header-only chunk or None,
+    the {bufs, nbytes, nbits, rng_tables, f2s, shifts, nvalid, bound} numpy
+    row of a chunk to decode, the slot table after this chunk). The row
+    holds the payload's next `cap` - 16 bytes at most (its `nbits`)."""
+    nbits = 8 * len(src) if nbits is None else nbits
     hdr_end, tables, f2s, shift, flag, aux, buf = \
-        native.range_dec_chunk(src, bit_pos, _BUF_CAP)
+        native.range_dec_chunk(src, bit_pos, cap, nbits)
+    scale = 1 << shift
+    held = np.zeros(0, np.uint8) if held is None else held
+    if len(held) < scale:
+        held = np.concatenate([held, np.zeros(scale - len(held), np.uint8)])
+    else:
+        held = held.copy()
+    held[:scale] = aux if flag == 2 else f2s[:scale]
     if flag == 2:
-        return hdr_end, aux, None
+        return hdr_end, aux, None, held
     # the payload's bits after the header, as kz_range_dec_chunk copied them
-    nbytes = (min(8 * len(src) - hdr_end, 8 * (_BUF_CAP - 16)) + 7) >> 3
+    rest = min(nbits - hdr_end, 8 * (cap - 16))
+    nbytes = (rest + 7) >> 3
+    slots = np.zeros(4096 if len(held) <= 4096 else 1 << 15, np.uint8)
+    slots[:len(held)] = held
     return hdr_end, None, {"bufs": buf[None, :max(nbytes, 1)],
                            "nbytes": np.array([nbytes], np.int32),
-                           "rng_tables": tables[None], "f2s": f2s[None],
+                           "nbits": np.array([rest], np.int32),
+                           "rng_tables": tables[None], "f2s": slots[None],
                            "shifts": np.array([shift], np.int32),
-                           "nvalid": np.array([size], np.int32)}
+                           "nvalid": np.array([size], np.int32),
+                           "bound": np.array([len(held)], np.int32)}, held
 
 
-def range_decode_many(payloads, out_lens, device) -> list:
+def _decode_rows(rows: list, device) -> tuple:
+    """ONE chunk decode launch on `device` for the stacked chunk rows:
+    (symbols, nreads) as numpy arrays."""
+    batch = device_io.stack(rows)
+    with _kernels.card_errors("range_decode"):
+        st = to_port_state(batch, device)
+        syms, nreads = ops_range.decode_chunks(
+            st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"],
+            st["shifts"], st["nvalid"], int(batch["nvalid"].max()),
+            st["nbits"], st["bound"])
+        return syms.cpu().numpy(), nreads.cpu().numpy()
+
+
+def range_decode_many(payloads, out_lens, device, nbits=None) -> list:
     """Decode the range payloads of a batch of blocks with the device
     pipeline. The format forces each block's chunk walk (a chunk's header
     begins where the previous chunk's renorm reads ended), so the blocks'
@@ -165,23 +203,30 @@ def range_decode_many(payloads, out_lens, device) -> list:
     cursor then moves by 60 + 28*nreads of its row. That is as many
     launches as the longest block has chunks, at most. Returns per block
     its uint8 array, byte-identical to the host decoder, or the exception
-    that rejected it: RuntimeError for a header the host rejects,
-    KanziError for renorm reads past the payload. Nothing is retried on
-    the host."""
+    that rejected it: NativeError for a header the host rejects,
+    KanziError where the host decoder fails (renorm reads past the
+    payload, decode_chunks' `bound` rules). `nbits`, where given, holds
+    each payload's bit count. A launch or read-back that fails raises
+    DeviceFault. Nothing is retried on the host."""
     device = torch.device(device)
     srcs = [np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p
             for p in payloads]
+    nbits = [8 * len(s) if b is None else b
+             for s, b in zip(srcs, nbits or [None] * len(srcs))]
     res: list = [np.empty(n, dtype=np.uint8) for n in out_lens]
     bit_pos = [0] * len(srcs)
+    held = [None] * len(srcs)
     live = [i for i, n in enumerate(out_lens) if n > 0]
     start = 0
     while live:
-        rows, owners = [], []
+        rows, owners, held_in = [], [], []
         for i in live:
             size = min(_CHUNK, out_lens[i] - start)
             try:
-                hdr_end, single, row = chunk_batch(srcs[i], bit_pos[i], size)
-            except RuntimeError as e:
+                was = held[i]
+                hdr_end, single, row, held[i] = chunk_batch(
+                    srcs[i], bit_pos[i], size, nbits[i], was)
+            except native.NativeError as e:
                 res[i] = e
                 continue
             if row is None:              # single-symbol chunk: header only
@@ -190,19 +235,27 @@ def range_decode_many(payloads, out_lens, device) -> list:
             else:
                 rows.append(row)
                 owners.append((i, hdr_end, size))
+                held_in.append(was)
         if rows:
-            batch = device_io.stack(rows)
-            st = to_port_state(batch, device)
-            syms, nreads = ops_range.decode_chunks(
-                st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"],
-                st["shifts"], st["nvalid"], int(batch["nvalid"].max()))
-            syms = syms.cpu().numpy()
-            nreads = nreads.cpu().numpy()
+            syms, nreads = _decode_rows(rows, device)
+            # a row cut short of its payload that failed decodes again
+            # with all a chunk can read
+            again = [r for r, (i, hdr_end, size) in enumerate(owners)
+                     if nreads[r] < 0 and rows[r]["nbits"][0] < nbits[i] - hdr_end]
+            if again:
+                full = [chunk_batch(srcs[owners[r][0]], bit_pos[owners[r][0]],
+                                    owners[r][2], nbits[owners[r][0]], held_in[r],
+                                    _BUF_FULL)[2] for r in again]
+                syms2, nreads2 = _decode_rows(full, device)
+                for k, r in enumerate(again):
+                    nreads[r] = nreads2[k]
+                    syms[r, :syms2.shape[1]] = syms2[k]
             for r, (i, hdr_end, size) in enumerate(owners):
                 nr = int(nreads[r])
                 if nr < 0:
-                    res[i] = KanziError("range decode: renorm reads past the "
-                                        "payload", ERR_PROCESS_BLOCK)
+                    res[i] = KanziError("range decode: the chunk's state or "
+                                        "renorm reads leave the payload",
+                                        ERR_PROCESS_BLOCK)
                     continue
                 res[i][start:start + size] = syms[r, :size]
                 bit_pos[i] = hdr_end + 60 + 28 * nr
@@ -212,10 +265,11 @@ def range_decode_many(payloads, out_lens, device) -> list:
     return res
 
 
-def range_decode_device(payload, out_len: int, device) -> bytes:
-    """Decode one range entropy payload with the device pipeline (a batch
-    of one: its chunk walk, one launch per chunk); a rejected payload
-    raises as range_decode_many says."""
+def range_decode_device(payload, out_len: int, device, nbits=None) -> bytes:
+    """Decode one range entropy payload (its first `nbits` bits, all of it
+    by default) with the device pipeline (a batch of one: its chunk walk,
+    one launch per chunk); a rejected payload raises as range_decode_many
+    says."""
     if out_len == 0:
         return b""
-    return device_io.one(range_decode_many([payload], [out_len], device))
+    return device_io.one(range_decode_many([payload], [out_len], device, [nbits]))

@@ -39,7 +39,7 @@ from .. import transforms as transforms_mod
 from .. import internal
 from .. import native
 from ..bitstream import BitReader, BitWriter
-from ..entropy.device_io import each as _each
+from ..entropy.device_io import REJECTIONS as _REJECTIONS, each as _each
 from ..core import (BITSTREAM_TYPE, BITSTREAM_FORMAT_VERSION, COPY_BLOCK_MASK,
                     TRANSFORMS_MASK, MIN_BITSTREAM_BLOCK_SIZE,
                     MAX_BITSTREAM_BLOCK_SIZE, SMALL_BLOCK_SIZE,
@@ -161,12 +161,26 @@ def compress_block_payload(data: np.ndarray, transform_type: int,
 
 
 def _parse_block_header(payload: bytes, transform_type: int, entropy_type: int,
-                        block_size: int, checksum_bits: int):
-    """The header fields of one block frame payload: (transform type,
-    entropy type, skip flags, pre-transform length, byte offset of the
-    entropy payload, checksum). A copy-mode block has transform and
-    entropy NONE. Raises ERR_BLOCK_SIZE for a length outside the block's
-    bounds."""
+                        block_size: int, checksum_bits: int, nbits=None):
+    """The header fields of one block frame payload (its first `nbits`
+    bits, all of it by default): (transform type, entropy type, skip
+    flags, pre-transform length, byte offset of the entropy payload,
+    checksum). A copy-mode block has transform and entropy NONE. Raises
+    ERR_PROCESS_BLOCK for a length outside the block's bounds, as the
+    native path's block decode does, and for a header that runs past the
+    payload's bits on a device payload (`nbits` given), as the native
+    path's decode does where the stream ends."""
+    if nbits is not None:
+        try:
+            fields = _parse_block_header(payload, transform_type, entropy_type,
+                                         block_size, checksum_bits)
+        except KanziError as e:
+            if e.code != ERR_READ_FILE:
+                raise
+            fields = None
+        if fields is None or 8 * fields[4] > nbits:
+            raise KanziError("Block header cut short", ERR_PROCESS_BLOCK)
+        return fields
     br = BitReader(payload)
     mode = br.read_bits(8)
     skip_flags = 0
@@ -183,7 +197,7 @@ def _parse_block_header(payload: bytes, transform_type: int, entropy_type: int,
     pre_len = br.read_bits(8 * data_size)
     max_len = min(max(block_size + block_size // 2, 2048), MAX_BITSTREAM_BLOCK_SIZE)
     if pre_len == 0 or pre_len > max_len:
-        raise KanziError(f"Invalid compressed block size: {pre_len}", ERR_BLOCK_SIZE)
+        raise KanziError(f"Invalid compressed block size: {pre_len}", ERR_PROCESS_BLOCK)
 
     checksum1 = br.read_bits(checksum_bits) if checksum_bits else 0
     # header fields are whole bytes
@@ -213,10 +227,13 @@ def _verify_checksum(result: bytes, checksum_bits: int, checksum1: int) -> bytes
     return result
 
 
-def _block_error(block_id: int, e: Exception) -> KanziError:
+def _block_error(block_id: int, e: Exception) -> Exception:
     """A block's decode failure as the Reader raises it, naming the block:
     a KanziError keeps its code, a payload the decoders reject
-    (ValueError, RuntimeError) is ERR_PROCESS_BLOCK."""
+    (ValueError, native.NativeError) is ERR_PROCESS_BLOCK, and a failure of
+    the card stays a DeviceFault (_block_fault), never a corrupt block."""
+    if isinstance(e, _kernels.DeviceFault):
+        return _block_fault([block_id], e)
     if isinstance(e, KanziError):
         err = KanziError(f"Block {block_id}: {e.msg}", e.code)
     else:
@@ -225,29 +242,59 @@ def _block_error(block_id: int, e: Exception) -> KanziError:
     return err
 
 
+def _past_frame(e: Exception) -> bool:
+    """Whether a block's rejection may come from reading past its frame:
+    every rejection but a checksum mismatch, whose decode read only the
+    frame's own bits and would decode the same from the rest of the
+    stream."""
+    return not (isinstance(e, KanziError) and e.code == ERR_CRC_CHECK)
+
+
+def _block_fault(block_ids, e: Exception) -> _kernels.DeviceFault:
+    """A DeviceFault raised while the card decoded `block_ids` (one block,
+    or a batch's blocks in order), under the first block's id."""
+    first, last = block_ids[0], block_ids[-1]
+    where = (f"Block {first}" if first == last
+             else f"Block {first} (the batch of blocks {first}-{last})")
+    err = _kernels.DeviceFault(f"{where}: {e}")
+    err.__cause__ = e
+    return err
+
+
 def decompress_block_payload(payload: bytes, transform_type: int,
                              entropy_type: int, ctx: dict,
                              block_size: int, checksum_bits: int = 0,
-                             block_id: int = 0, listeners=()) -> bytes:
-    """Decode one block frame payload back to its original bytes.
+                             block_id: int = 0, listeners=(), nbits=None,
+                             cap=None) -> bytes:
+    """Decode one block frame payload (its first `nbits` bits, all of it
+    by default) back to its original bytes. With `cap` (the device path),
+    the inverse transforms are the native path's own (native.block_inverse:
+    its room, and a result longer than `cap` failing before its checksum
+    is checked), as the native path's block decode runs them.
 
     Mirrors decodingTask.decode (reference: v2/io/CompressedStream.go:1763-2012).
     """
     t_type, e_type, skip_flags, pre_len, offset, checksum1 = _parse_block_header(
-        payload, transform_type, entropy_type, block_size, checksum_bits)
+        payload, transform_type, entropy_type, block_size, checksum_bits, nbits)
     hash_type = HashType(checksum_bits // 32)
     if listeners:
         _notify(listeners, Event(EventType.BEFORE_ENTROPY, block_id,
                                  len(payload), checksum1, hash_type, time.time()))
     ctx = dict(ctx)
     ctx["size"] = pre_len
+    if nbits is not None:
+        ctx["payloadBits"] = nbits - 8 * offset
     buf = entropy_mod.decode(e_type, payload[offset:], pre_len, ctx)
     if listeners:
         _notify(listeners, Event(EventType.AFTER_ENTROPY, block_id,
                                  pre_len, checksum1, hash_type, time.time()))
         _notify(listeners, Event(EventType.BEFORE_TRANSFORM, block_id,
                                  pre_len, checksum1, hash_type, time.time()))
-    result = _inverse_block(buf, t_type, skip_flags, ctx, pre_len)
+    if cap is None:
+        result = _inverse_block(buf, t_type, skip_flags, ctx, pre_len)
+    else:
+        result = native.block_inverse(buf, pre_len, t_type, entropy_type, skip_flags,
+                                      ctx, block_size, cap)
     if listeners:
         _notify(listeners, Event(EventType.AFTER_TRANSFORM, block_id,
                                  len(result), checksum1, hash_type, time.time()))
@@ -755,6 +802,10 @@ class Reader:
         self._use_native = native.available() and ibs is None
         self._fast: bool | None = None
         self._outbuf: np.ndarray | None = None
+        # the device path's per-block decode follows the native path's
+        # output buffer in size only: [its length or None, the bytes it
+        # holds, the bytes served since it last dropped them]
+        self._room: list = [None, 0, 0]
         self._outbuf_len = 0
         self._slot_out: list = []  # per-block buffers for parallel decode
         self.ctx = dict(ctx) if ctx else {}
@@ -953,14 +1004,23 @@ class Reader:
                     file_size=self.ctx.get("fileSize", -1),
                     input_name=self.ctx.get("inputName", ""))))
 
-    def _ensure_outbuf(self, nbytes: int) -> None:
-        if self._outbuf is None:
+    def _outbuf_size(self, cur, nbytes: int) -> int:
+        """The native path's output buffer length once it holds `nbytes`
+        (`cur`: its length now, None before it exists)."""
+        if cur is None:
             init = self.outputSize + 16 if (self.outputSize and
                                             self._fh is None) else max(
                 4 * self.block_size, nbytes)
-            self._outbuf = np.empty(max(init, nbytes), dtype=np.uint8)
-        elif len(self._outbuf) < nbytes:
-            new = np.empty(max(nbytes, 2 * len(self._outbuf)), dtype=np.uint8)
+            return max(init, nbytes)
+        return cur if cur >= nbytes else max(nbytes, 2 * cur)
+
+    def _ensure_outbuf(self, nbytes: int) -> None:
+        size = self._outbuf_size(None if self._outbuf is None else len(self._outbuf),
+                                 nbytes)
+        if self._outbuf is None:
+            self._outbuf = np.empty(size, dtype=np.uint8)
+        elif size > len(self._outbuf):
+            new = np.empty(size, dtype=np.uint8)
             new[:self._outbuf_len] = self._outbuf[:self._outbuf_len]
             self._outbuf = new
 
@@ -1023,7 +1083,7 @@ class Reader:
                 raise KanziError(
                     f"Corrupted bitstream: block {self._block_id} checksum mismatch",
                     ERR_CRC_CHECK)
-            except RuntimeError as e:
+            except native.NativeError as e:
                 raise KanziError(f"Block {self._block_id}: {e}", ERR_PROCESS_BLOCK)
             if n > self.block_size:
                 raise KanziError(f"Block {self._block_id} incorrectly decompressed",
@@ -1032,24 +1092,63 @@ class Reader:
             br._pos = pos + bits
             return True
 
-        payload = br.read_array(bits)
+        pos = br._pos
+        if self.device is None:
+            payload, nbits, cap = br.read_array(bits), None, None
+        else:
+            payload, nbits = self._frame_bytes(pos, bits)
+            br._pos = pos + bits
+            # the room the native path's block decode would have: what is
+            # left of its output buffer (self._room)
+            self._room[0] = self._outbuf_size(self._room[0], self._room[1] + self.block_size)
+            cap = self._room[0] - self._room[1]
         try:
-            data = decompress_block_payload(payload, self.transform_type,
-                                            self.entropy_type, self.ctx,
-                                            self.block_size, self.checksum_bits,
-                                            self._block_id, tuple(self.listeners))
-        except KanziError:
-            raise
-        except (ValueError, RuntimeError) as e:
+            try:
+                data = decompress_block_payload(payload, self.transform_type,
+                                                self.entropy_type, self.ctx,
+                                                self.block_size, self.checksum_bits,
+                                                self._block_id, tuple(self.listeners),
+                                                nbits, cap)
+            except _REJECTIONS as e:
+                if (self.device is None or pos + nbits >= 8 * len(self._src)
+                        or not _past_frame(e)):
+                    raise
+                # decoded again from the rest of the stream, which the
+                # native path's decoders read on into past a frame's end
+                rest, nbits = self._rest(pos)
+                data = decompress_block_payload(rest, self.transform_type,
+                                                self.entropy_type, self.ctx,
+                                                self.block_size, self.checksum_bits,
+                                                self._block_id, (), nbits, cap)
+        except _REJECTIONS + (_kernels.DeviceFault,) as e:
             # a payload the decoders reject: the error contract of the
-            # native path above, device decodes included
+            # native path above, device decodes included, under the
+            # block's id as on the batched path; a failure of the card
+            # leaves as a DeviceFault
             raise _block_error(self._block_id, e) from e
         if len(data) > self.block_size:
             raise KanziError(f"Block {self._block_id} incorrectly decompressed",
                              ERR_PROCESS_BLOCK)
+        self._room[1] += len(data)
         self._chunks.append(data)
         self._chunks_len += len(data)
         return True
+
+    def _frame_bytes(self, pos: int, bits: int) -> tuple:
+        """A frame's payload for the device path, and its bit count: the
+        frame's bits, up to its last whole byte of the stream, or what the
+        stream holds of it where it is cut short (the native path decodes
+        from the stream itself, so its decoders see the same bits there)."""
+        br = BitReader(self._src)
+        br._pos = pos
+        nbits = min((bits + 7) & ~7, 8 * len(self._src) - pos)
+        return br.read_array(nbits), nbits
+
+    def _rest(self, pos: int) -> tuple:
+        """The stream's bits from `pos` to the end of what it holds, and
+        their count: where the native path's decoders read from, past a
+        frame's end too."""
+        return self._frame_bytes(pos, 8 * len(self._src) - pos)
 
     def _read_frames(self):
         """Read up to `jobs` frames serially (the frame reads are serialized
@@ -1092,7 +1191,8 @@ class Reader:
         launch (one per chunk index for RANGE, entropy.decode_many), the
         inverse transforms and checksums on the pool; the outputs append
         in block order. A block that fails raises as _read_next_block
-        would, under its own id (the first failing block of the batch).
+        would, under its own id (the first failing block of the batch); a
+        DeviceFault of the launch, under the first device block's id.
         Listeners get decompress_block_payload's events: BEFORE_ENTROPY
         (the decoder's ordered phase) in block order before the launch; the
         other three, stamped on the pool when they happen, in block order
@@ -1102,16 +1202,36 @@ class Reader:
         frames, more = self._read_frames()
         if not frames:
             return more
-        payloads = []
-        for pos, bits, _ in frames:
-            br = BitReader(self._src)
-            br._pos = pos
-            payloads.append(br.read_array(bits))
-        run = self._pool.map
-        heads = _each(run, lambda p: _parse_block_header(
-            p, self.transform_type, self.entropy_type, self.block_size,
-            self.checksum_bits), payloads)
         listeners = tuple(self.listeners)
+        outs = self._decode_frames(
+            frames, [self._frame_bytes(pos, bits) for pos, bits, _ in frames], listeners)
+        # a block its frame's bits could not decode decodes again from the
+        # rest of the stream, which the native path's decoders read on into
+        redo = [i for i, out in enumerate(outs)
+                if isinstance(out, _REJECTIONS) and _past_frame(out)]
+        if redo:
+            again = self._decode_frames([frames[i] for i in redo],
+                                        [self._rest(frames[i][0]) for i in redo], ())
+            for i, out in zip(redo, again):
+                outs[i] = out
+        for (_, _, block_id), out in zip(frames, outs):
+            if isinstance(out, Exception):
+                raise _block_error(block_id, out)
+            for evt in out[1]:
+                _notify(listeners, evt)
+        for out, _ in outs:
+            self._chunks.append(out)
+            self._chunks_len += len(out)
+        return more
+
+    def _decode_frames(self, frames, payloads, listeners) -> list:
+        """_read_batch_device's decode of `frames` from `payloads`: per
+        block its (output, events), or the rejection that failed it."""
+        run = self._pool.map
+        payloads, nbits = [p for p, _ in payloads], [n for _, n in payloads]
+        heads = _each(run, lambda pn: _parse_block_header(
+            pn[0], self.transform_type, self.entropy_type, self.block_size,
+            self.checksum_bits, pn[1]), list(zip(payloads, nbits)))
         hash_type = HashType(self.checksum_bits // 32)
         if listeners:
             for (_, _, block_id), p, h in zip(frames, payloads, heads):
@@ -1122,16 +1242,21 @@ class Reader:
         # copy-mode blocks (entropy NONE) need no device work
         dev = [i for i, h in enumerate(heads)
                if not isinstance(h, Exception) and h[1] != entropy_mod.NONE_TYPE]
-        decoded = dict(zip(dev, entropy_mod.decode_many(
-            self.entropy_type, [payloads[i][heads[i][4]:] for i in dev],
-            [heads[i][3] for i in dev], self.ctx, run))) if dev else {}
+        try:
+            decoded = dict(zip(dev, entropy_mod.decode_many(
+                self.entropy_type, [payloads[i][heads[i][4]:] for i in dev],
+                [heads[i][3] for i in dev], self.ctx, run,
+                [nbits[i] - 8 * heads[i][4] for i in dev]))) if dev else {}
+        except _kernels.DeviceFault as e:
+            raise _block_fault([frames[i][2] for i in dev], e) from e
 
         def finish(i):
             if isinstance(heads[i], Exception):
                 raise heads[i]
             t_type, e_type, skip_flags, pre_len, offset, checksum1 = heads[i]
             if e_type == entropy_mod.NONE_TYPE:
-                buf = entropy_mod.decode(e_type, payloads[i][offset:], pre_len, self.ctx)
+                buf = entropy_mod.decode(e_type, payloads[i][offset:], pre_len,
+                                         dict(self.ctx, payloadBits=nbits[i] - 8 * offset))
             else:
                 buf = decoded[i]
                 if isinstance(buf, Exception):
@@ -1142,25 +1267,17 @@ class Reader:
                 events += [Event(evt, block_id, pre_len, checksum1, hash_type, t)
                            for evt in (EventType.AFTER_ENTROPY,
                                        EventType.BEFORE_TRANSFORM)]
-            result = _inverse_block(buf, t_type, skip_flags, self.ctx, pre_len)
+            # the native path's parallel decode: a block's slot is its room,
+            # checked before its checksum
+            result = native.block_inverse(buf, pre_len, t_type, self.entropy_type,
+                                          skip_flags, self.ctx, self.block_size,
+                                          self.block_size)
             if listeners:
                 events.append(Event(EventType.AFTER_TRANSFORM, block_id, len(result),
                                     checksum1, hash_type, time.time()))
             return _verify_checksum(result, self.checksum_bits, checksum1), events
 
-        outs = _each(run, finish, range(len(frames)))
-        for (_, _, block_id), out in zip(frames, outs):
-            if isinstance(out, Exception):
-                raise _block_error(block_id, out)
-            for evt in out[1]:
-                _notify(listeners, evt)
-            if len(out[0]) > self.block_size:
-                raise KanziError(f"Block {block_id} incorrectly decompressed",
-                                 ERR_PROCESS_BLOCK)
-        for out, _ in outs:
-            self._chunks.append(out)
-            self._chunks_len += len(out)
-        return more
+        return _each(run, finish, range(len(frames)))
 
     def _read_batch_parallel(self) -> bool:
         """Read up to `jobs` frames serially, decode them concurrently
@@ -1188,7 +1305,7 @@ class Reader:
                 raise KanziError(
                     f"Corrupted bitstream: block {block_id} checksum mismatch",
                     ERR_CRC_CHECK)
-            except RuntimeError as e:
+            except native.NativeError as e:
                 raise KanziError(f"Block {block_id}: {e}", ERR_PROCESS_BLOCK)
 
         lens = list(self._pool.map(decode_one, enumerate(frames)))
@@ -1244,6 +1361,11 @@ class Reader:
         else:
             res = bytes(self._out[self._out_pos:end])
         self._out_pos = end
+        self._room[2] += len(res)
+        if self._fh is not None and self._room[2] >= (32 << 20):
+            # the native path drops served output here (read's fast branch)
+            self._room[1] -= self._room[2]
+            self._room[2] = 0
         return res
 
     def _available(self) -> int:

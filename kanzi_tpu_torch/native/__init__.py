@@ -40,6 +40,12 @@ _lock = threading.Lock()
 _lib = None
 
 
+class NativeError(RuntimeError):
+    """The library rejected its input: an error code from a decode, encode
+    or transform call, the host's own rejection of a payload. The Reader
+    maps it to a corrupt block (ERR_PROCESS_BLOCK); nothing else is."""
+
+
 class Ctx(ctypes.Structure):
     _fields_ = [
         ("bsVersion", ctypes.c_int32),
@@ -155,6 +161,11 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64,
             ctypes.c_int, ctypes.POINTER(Ctx), ctypes.c_int, ctypes.c_int32,
             ctypes.c_void_p, ctypes.c_int64]
+        lib.kz_block_inverse.restype = ctypes.c_int64
+        lib.kz_block_inverse.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(Ctx), ctypes.c_int32, ctypes.c_void_p,
+            ctypes.c_int64]
         lib.kz_block_transform.restype = ctypes.c_int64
         lib.kz_block_transform.argtypes = [
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint64, ctypes.c_int,
@@ -258,7 +269,7 @@ def entropy_encode(etype: int, data, ctx: dict) -> tuple[bytes, int]:
     bits = lib.kz_entropy_encode(etype, src.ctypes.data, n, dst.ctypes.data,
                                  cap, ctypes.byref(c))
     if bits < 0:
-        raise RuntimeError(f"native entropy encode failed (etype={etype}, err={bits})")
+        raise NativeError(f"native entropy encode failed (etype={etype}, err={bits})")
     return dst[: (bits + 7) // 8].tobytes(), int(bits)
 
 
@@ -270,7 +281,7 @@ def entropy_decode(etype: int, payload, out_len: int, ctx: dict) -> bytes:
     res = lib.kz_entropy_decode(etype, src.ctypes.data, len(src),
                                 dst.ctypes.data, out_len, ctypes.byref(c))
     if res < 0:
-        raise RuntimeError(f"native entropy decode failed (etype={etype}, err={res})")
+        raise NativeError(f"native entropy decode failed (etype={etype}, err={res})")
     return dst[:out_len].tobytes()
 
 
@@ -297,7 +308,7 @@ def transform_forward(ttype: int, data, ctx: dict, max_encoded_len: int) -> tupl
     if res == 1:
         raise NativeSkip()
     if res != 0:
-        raise RuntimeError(f"native transform forward failed (ttype={ttype}, err={res})")
+        raise NativeError(f"native transform forward failed (ttype={ttype}, err={res})")
     return dst[: out_len.value].tobytes(), ctx
 
 
@@ -313,7 +324,7 @@ def transform_inverse(ttype: int, data, ctx: dict, cap: int) -> bytes:
                                    dst.ctypes.data, cap, ctypes.byref(c),
                                    ctypes.byref(out_len))
     if res != 0:
-        raise RuntimeError(f"native transform inverse failed (ttype={ttype}, err={res})")
+        raise NativeError(f"native transform inverse failed (ttype={ttype}, err={res})")
     return dst[: out_len.value].tobytes()
 
 
@@ -348,7 +359,7 @@ def block_encode(src: np.ndarray, chain: int, etype: int, ctx: dict,
         checksum_bits, 1 if skip_blocks else 0, dst.ctypes.data, len(dst),
         ctypes.byref(post_len), ctypes.byref(skip_flags), ctypes.byref(checksum))
     if bits < 0:
-        raise RuntimeError(f"native block encode failed (err={bits})")
+        raise NativeError(f"native block encode failed (err={bits})")
     return int(bits), int(post_len.value), int(skip_flags.value), int(checksum.value)
 
 
@@ -368,8 +379,27 @@ def block_decode(src: np.ndarray, byte_off: int, bit_off: int, chain: int,
     if res == -7:
         raise ChecksumMismatch()
     if res < 0:
-        raise RuntimeError(f"native block decode failed (err={res})")
+        raise NativeError(f"native block decode failed (err={res})")
     return int(res)
+
+
+def block_inverse(buf, pre_len: int, chain: int, etype: int, skip_flags: int,
+                  ctx: dict, block_size: int, cap: int) -> bytes:
+    """The transform half of block_decode for a block whose entropy stage
+    ran on the device: the inverse chain over its entropy output `buf`
+    (pre_len bytes), with the native block decode's room and rules; a
+    result longer than `cap` fails (err -9) as it does there."""
+    lib = get_lib()
+    src = _as_buf(buf)
+    if len(src) < pre_len:
+        raise ValueError(f"block_inverse: {len(src)} bytes, expected {pre_len}")
+    dst = np.empty(max(cap, 1), dtype=np.uint8)
+    res = lib.kz_block_inverse(src.ctypes.data, pre_len, chain, etype, skip_flags,
+                               ctypes.byref(make_ctx(ctx)), block_size,
+                               dst.ctypes.data, cap)
+    if res < 0:
+        raise NativeError(f"native block inverse failed (err={res})")
+    return dst[:res].tobytes()
 
 
 class ChecksumMismatch(Exception):
@@ -395,7 +425,7 @@ def block_transform(src: np.ndarray, chain: int, etype: int, ctx: dict,
         ctypes.byref(mode), ctypes.byref(extra), ctypes.byref(flags),
         ctypes.byref(cks), ctypes.byref(copy))
     if post < 0:
-        raise RuntimeError(f"native block transform failed (err={post})")
+        raise NativeError(f"native block transform failed (err={post})")
     return (int(post), int(mode.value), int(extra.value), int(flags.value),
             int(cks.value), int(copy.value))
 
@@ -413,7 +443,7 @@ def huffman_assemble(block: np.ndarray, hdr: np.ndarray, hdr_bits: np.ndarray,
         lane_bytes.ctypes.data, lane_bytes.shape[1] if lane_bytes.size else 0,
         lane_bits.ctypes.data, dst.ctypes.data + dst_off, len(dst) - dst_off)
     if bits < 0:
-        raise RuntimeError(f"huffman assemble failed (err={bits})")
+        raise NativeError(f"huffman assemble failed (err={bits})")
     return int(bits)
 
 
@@ -421,8 +451,22 @@ HUF_LANE_STRIDE = 6160   # > FRAG*12/8 + refill slack
 HUF_AUX_STRIDE = 32
 
 
-def huffman_dec_prepare(payload, out_len: int):
-    """Parse a Huffman entropy payload into device-decodable pieces.
+def _payload_bits(src: np.ndarray, nbits) -> int:
+    """The bits of a payload a prepare may read: all of its bytes, or
+    `nbits` where the payload ends inside its last byte."""
+    if nbits is None:
+        return 8 * len(src)
+    if not 0 <= nbits <= 8 * len(src):
+        raise ValueError(f"payload of {len(src)} bytes cannot hold {nbits} bits")
+    return int(nbits)
+
+
+def huffman_dec_prepare(payload, out_len: int, nbits=None, with_lane_bits=False):
+    """Parse a Huffman entropy payload (its first `nbits` bits, all of it
+    by default) into device-decodable pieces. Each lane row is the start of
+    the host decoder's buffer region of that lane, as the host decoder
+    holds it for the chunk (kz_huffman_dec_prepare). With `with_lane_bits`,
+    each lane's bit count comes last.
 
     Returns (dtables (C,4096) uint16, lanes (4*Cn, stride) uint8
     zero-guarded rows for flag==0 chunks, flags (C,) uint8,
@@ -440,15 +484,16 @@ def huffman_dec_prepare(payload, out_len: int):
     lane_bits = np.empty(4 * nchunks, dtype=np.int32)
     flags = np.empty(nchunks, dtype=np.uint8)
     aux = np.zeros((nchunks, HUF_AUX_STRIDE), dtype=np.uint8)
-    c = lib.kz_huffman_dec_prepare(src.ctypes.data, len(src), out_len,
+    c = lib.kz_huffman_dec_prepare(src.ctypes.data, _payload_bits(src, nbits), out_len,
                                    dtables.ctypes.data, lanes.ctypes.data,
                                    HUF_LANE_STRIDE, lane_bits.ctypes.data,
                                    flags.ctypes.data, aux.ctypes.data,
                                    HUF_AUX_STRIDE)
     if c < 0:
-        raise RuntimeError(f"huffman decode prepare failed (err={c})")
+        raise NativeError(f"huffman decode prepare failed (err={c})")
     nlanes = 4 * int((flags[:c] == 0).sum())
-    return dtables[:c], lanes[:nlanes], flags[:c], aux[:c]
+    out = dtables[:c], lanes[:nlanes], flags[:c], aux[:c]
+    return out + (lane_bits[:nlanes],) if with_lane_bits else out
 
 
 ANS0_CHUNK = 16384
@@ -456,7 +501,7 @@ ANS1_CHUNK = 16384 << 8
 ANS_HDR_STRIDE = {0: 1024, 1: 131072}
 
 
-class ShortANS1Chunk(RuntimeError):
+class ShortANS1Chunk(NativeError):
     """An order-1 chunk of 2 or 3 bytes, which the format cannot encode
     (the reference indexes before the chunk; the host encoder raises)."""
 
@@ -485,12 +530,13 @@ def ans_prepare(data, order: int):
     if c == -2:
         raise ShortANS1Chunk("invalid ANS1 chunk size")
     if c < 0:
-        raise RuntimeError(f"ans prepare failed (err={c})")
+        raise NativeError(f"ans prepare failed (err={c})")
     return tables[:c], hdr[:c], hdr_bits[:c], flags[:c]
 
 
-def ans_dec_prepare(payload, out_len: int, order: int):
-    """Parse an ANS entropy payload into device-decodable pieces.
+def ans_dec_prepare(payload, out_len: int, order: int, nbits=None):
+    """Parse an ANS entropy payload (its first `nbits` bits, all of it by
+    default) into device-decodable pieces.
 
     Returns (dtabs (C,2,dim*256) int32 [freq, cumFreq], f2s (C, dim*2^16)
     uint8 [chunk c's map fills the first dim*2^lrs[c] bytes of its row],
@@ -519,14 +565,14 @@ def ans_dec_prepare(payload, out_len: int, order: int):
     flags = np.empty(nchunks, dtype=np.uint8)
     aux = np.empty(nchunks, dtype=np.uint8)
     lrs = np.empty(nchunks, dtype=np.int32)
-    c = lib.kz_ans_dec_prepare(src.ctypes.data, len(src), out_len, order,
+    c = lib.kz_ans_dec_prepare(src.ctypes.data, _payload_bits(src, nbits), out_len, order,
                                dtabs.ctypes.data, f2s.ctypes.data, f2s_stride,
                                states.ctypes.data, bufs.ctypes.data,
                                buf_stride, buf_sz.ctypes.data,
                                flags.ctypes.data, aux.ctypes.data,
                                lrs.ctypes.data)
     if c < 0:
-        raise RuntimeError(f"ans decode prepare failed (err={c})")
+        raise NativeError(f"ans decode prepare failed (err={c})")
     return (dtabs[:c], f2s[:c], states[:c], bufs[:c], buf_sz[:c], flags[:c],
             aux[:c], lrs[:c])
 
@@ -545,7 +591,7 @@ def ans_assemble(block: np.ndarray, order: int, hdr: np.ndarray,
         pair_counts.ctypes.data, states.ctypes.data,
         dst.ctypes.data + dst_off, len(dst) - dst_off)
     if bits < 0:
-        raise RuntimeError(f"ans assemble failed (err={bits})")
+        raise NativeError(f"ans assemble failed (err={bits})")
     return int(bits)
 
 
@@ -557,7 +603,7 @@ def frame_append(stream: np.ndarray, bitpos: int, payload: np.ndarray,
     res = lib.kz_frame_append(stream.ctypes.data, len(stream), bitpos,
                               payload.ctypes.data, bits)
     if res < 0:
-        raise RuntimeError("frame append overflow")
+        raise NativeError("frame append overflow")
     return int(res)
 
 
@@ -566,7 +612,7 @@ def stream_close(stream: np.ndarray, bitpos: int) -> int:
     lib = get_lib()
     res = lib.kz_stream_close(stream.ctypes.data, len(stream), bitpos)
     if res < 0:
-        raise RuntimeError("stream close overflow")
+        raise NativeError("stream close overflow")
     return int(res)
 
 
@@ -598,7 +644,7 @@ def c_compress(data, block_size: int, chain: int, etype: int, ctx: dict,
             cap = worst
             continue
         if res < 0:
-            raise RuntimeError(f"kz_compress failed (err={res})")
+            raise NativeError(f"kz_compress failed (err={res})")
         return dst[:res].tobytes()
 
 
@@ -619,7 +665,7 @@ def c_decompress(blob, out_cap: int, ctx: dict | None = None,
     if res == -7:
         raise ChecksumMismatch()
     if res < 0:
-        raise RuntimeError(f"kz_decompress failed (err={res})")
+        raise NativeError(f"kz_decompress failed (err={res})")
     return dst[:res].tobytes()
 
 
@@ -636,7 +682,7 @@ def c_stream_info(blob) -> dict:
                              ctypes.byref(et), ctypes.byref(ch),
                              ctypes.byref(bs), ctypes.byref(osz))
     if res < 0:
-        raise RuntimeError(f"kz_stream_info failed (err={res})")
+        raise NativeError(f"kz_stream_info failed (err={res})")
     return {"header_bits": int(res), "checksum_bits": int(ckb.value),
             "entropy_type": int(et.value), "transform_chain": int(ch.value),
             "block_size": int(bs.value),
@@ -663,7 +709,7 @@ def huffman_prepare(data):
                                hdr.ctypes.data, HDR_STRIDE,
                                hdr_bits.ctypes.data, flags.ctypes.data)
     if c < 0:
-        raise RuntimeError("huffman prepare failed")
+        raise NativeError("huffman prepare failed")
     return tables[:c], hdr[:c], hdr_bits[:c], flags[:c]
 
 
@@ -692,7 +738,7 @@ def range_prepare(data):
                              hdr_bits.ctypes.data, flags.ctypes.data,
                              shifts.ctypes.data)
     if c < 0:
-        raise RuntimeError(f"range prepare failed (err={c})")
+        raise NativeError(f"range prepare failed (err={c})")
     return tables[:c], hdr[:c], hdr_bits[:c], flags[:c], shifts[:c]
 
 
@@ -710,25 +756,32 @@ def range_assemble(block: np.ndarray, hdr: np.ndarray, hdr_bits: np.ndarray,
         nwords.ctypes.data, lows.ctypes.data,
         dst.ctypes.data + dst_off, len(dst) - dst_off)
     if bits < 0:
-        raise RuntimeError(f"range assemble failed (err={bits})")
+        raise NativeError(f"range assemble failed (err={bits})")
     return int(bits)
 
 
-def range_dec_chunk(payload: np.ndarray, bit_pos: int, buf_cap: int):
-    """Parse ONE range chunk header at bit_pos and byte-align the rest of
-    the payload for the device scan (kz_range_dec_chunk).
+def range_dec_chunk(payload: np.ndarray, bit_pos: int, buf_cap: int, nbits=None):
+    """Parse ONE range chunk header at bit_pos of the payload (its first
+    `nbits` bits, all of it by default) and byte-align the rest of the
+    payload for the device scan (kz_range_dec_chunk).
 
     Returns (new_bit_pos just past the header, tables (2,256) int32,
-    f2s (4096,) uint8, shift, flag, aux_sym, buf (buf_cap,) uint8)."""
+    f2s uint8 slot -> symbol, its first 1 << shift slots the chunk's and
+    zeros after them up to 4096 slots at least (None for a single-symbol
+    chunk), shift (the chunk's logRange), flag, aux_sym, buf (buf_cap,)
+    uint8)."""
     lib = get_lib()
     src = _as_buf(payload)
     tables = np.empty((2, 256), dtype=np.int32)
-    f2s = np.empty(4096, dtype=np.uint8)
+    f2s = np.empty(1 << 15, dtype=np.uint8)      # the format's largest logRange
     meta = np.empty(3, dtype=np.int32)
     buf = np.empty(buf_cap, dtype=np.uint8)
-    pos = lib.kz_range_dec_chunk(src.ctypes.data, len(src), bit_pos,
+    pos = lib.kz_range_dec_chunk(src.ctypes.data, _payload_bits(src, nbits), bit_pos,
                                  tables.ctypes.data, f2s.ctypes.data,
                                  meta.ctypes.data, buf.ctypes.data, buf_cap)
     if pos < 0:
-        raise RuntimeError(f"range decode prepare failed (err={pos})")
-    return int(pos), tables, f2s, int(meta[0]), int(meta[1]), int(meta[2]), buf
+        raise NativeError(f"range decode prepare failed (err={pos})")
+    shift = int(meta[0])
+    f2s[1 << shift:4096] = 0
+    return (int(pos), tables, None if meta[1] == 2 else f2s[:max(1 << shift, 4096)],
+            shift, int(meta[1]), int(meta[2]), buf)

@@ -593,7 +593,7 @@ extern "C" int kz_ans_prepare(const uint8_t* block, int64_t len, int order,
 // encoder may use another than the default 12 or 11). A chunk's map fills
 // the first dim << lr bytes of its f2s row. Returns the chunk count, or a
 // negative error code.
-extern "C" int kz_ans_dec_prepare(const uint8_t* payload, int64_t payloadBytes,
+extern "C" int kz_ans_dec_prepare(const uint8_t* payload, int64_t payloadBits,
                                   int64_t outLen, int order,
                                   int32_t* dtabs, uint8_t* f2s, int64_t f2sStride,
                                   int32_t* states, uint8_t* bufs,
@@ -605,7 +605,7 @@ extern "C" int kz_ans_dec_prepare(const uint8_t* payload, int64_t payloadBytes,
             ? std::min(ANS0_CHUNK_SIZE << 8, ANS_MAX_CHUNK_SIZE)
             : ANS0_CHUNK_SIZE;
         size_t dim = order == 1 ? 256 : 1;
-        IBS ibs(payload, payloadBytes);
+        IBS ibs(payload, (u64)payloadBits, true);
         std::vector<i32> freqs(dim * 256);
         std::vector<DecSymbol> symbols(dim * 256);
         std::vector<u8> f2sLocal;

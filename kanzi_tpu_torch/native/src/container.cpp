@@ -325,6 +325,75 @@ int64_t kz_block_encode(const uint8_t* src, int32_t n, uint64_t chain,
     }
 }
 
+// The inverse chain's room: every intermediate of a conformant stream fits
+// the forward's ping-pong buffers of chainRequired(blockSize) bytes (see
+// kz_block_encode), e.g. SRT+SRT+BWT+ROLZ on a 1 KiB block legitimately
+// passes a 1556-byte intermediate through the chain (fuzz seed 425151180).
+// Crafted streams that exceed it fail cleanly on the per-stage cap check.
+static i64 inverseCap(const int* ids, int nbtr, int32_t blockSize, i64 preLen) {
+    i64 invCap = (i64)blockSize + ((blockSize >> 4) > 512 ? (blockSize >> 4) : 512) + 16;
+    if (invCap < preLen + 1024) invCap = preLen + 1024;
+    const i64 req = chainRequired(ids, nbtr, blockSize);
+    return invCap < req ? req : invCap;
+}
+
+// The non-skipped transforms of a block in reverse order over its entropy
+// output (buf, preLen bytes, in the scratch's c buffer), through the
+// scratch's ping-pong buffers of invCap bytes, into dst (cap bytes).
+// Returns the block's length, -8 where a transform fails, -9 where the
+// result passes cap.
+static i64 inverseChain(const int* ids, int nbtr, u8 skipFlags, Ctx& ctx, i64 invCap,
+                        const u8* buf, i64 preLen, u8* dst, i64 cap) {
+    Scratch& s = scratch();
+    const u8* cur = buf;
+    i32 curLen = (i32)preLen;
+    growTouch(s.a, (size_t)invCap);
+    growTouch(s.b, (size_t)invCap);
+    u8* ping = s.a.data();
+    u8* pong = s.b.data();
+    if (skipFlags != 0xFF) {
+        for (int i = nbtr - 1; i >= 0; i--) {
+            if (skipFlags & (1u << (7 - i))) continue;
+            ctx.hasHisto = 0;
+            i32 olen = 0;
+            int res = transformInverse(ids[i], cur, curLen, ping, invCap, ctx, &olen);
+            if (res != 0) return -8;
+            cur = ping;
+            curLen = olen;
+            u8* t = ping; ping = pong; pong = t;
+        }
+    }
+    if (curLen > cap) return -9;
+    if (cur != dst) std::memcpy(dst, cur, curLen);
+    return curLen;
+}
+
+// The transform half of kz_block_decode, for a block whose entropy stage
+// ran elsewhere (the device engines): the stream's chain and entropy type,
+// the block's skip flags, its entropy output src (preLen bytes) -> dst (cap
+// bytes), with kz_block_decode's room and rules. Returns the block's length
+// or kz_block_decode's error (-8, -9; -1 on an exception).
+extern "C" int64_t kz_block_inverse(const uint8_t* src, int64_t preLen, uint64_t chain,
+                                    int etype, int skipFlags, Ctx* ctxIn,
+                                    int32_t blockSize, uint8_t* dst, int64_t cap) {
+    try {
+        Ctx ctx = *ctxIn;
+        ctx.size = (i32)preLen;
+        ctx.entropyType = etype;
+        int ids[8];
+        const int nbtr = parseChain(chain, ids);
+        constructChain(ids, nbtr, etype, ctx);
+        const i64 invCap = inverseCap(ids, nbtr, blockSize, preLen);
+        Scratch& s = scratch();
+        growTouch(s.c, (size_t)invCap);
+        std::memcpy(s.c.data(), src, (size_t)preLen);
+        return inverseChain(ids, nbtr, (u8)skipFlags, ctx, invCap, s.c.data(), preLen,
+                            dst, cap);
+    } catch (const std::exception&) {
+        return -1;
+    }
+}
+
 // Decode one block frame payload. `src` points at the byte containing the
 // first payload bit; `bitOff` [0..7] is the bit offset within it; srcBytes
 // bounds reads (payload may legally over-read into subsequent padding, as
@@ -375,36 +444,14 @@ int64_t kz_block_decode(const uint8_t* src, int64_t srcBytes, int bitOff,
         // legitimately passes a 1556-byte intermediate through the chain
         // (fuzz seed 425151180). Crafted streams that exceed it still fail
         // cleanly on the per-stage cap check.
-        i64 invCap = (i64)blockSize + ((blockSize >> 4) > 512 ? (blockSize >> 4) : 512) + 16;
-        if (invCap < preLen + 1024) invCap = preLen + 1024;
-        i64 req = chainRequired(ids, nbtr, blockSize);
-        if (invCap < req) invCap = req;
+        const i64 invCap = inverseCap(ids, nbtr, blockSize, preLen);
         Scratch& s = scratch();
         growTouch(s.c, (size_t)invCap);
         u8* buf = s.c.data();
         entropyDecodeAny(ibs, eType, buf, preLen, ctx);
-
-        // inverse chain, non-skipped transforms in reverse order
-        const u8* cur = buf;
-        i32 curLen = (i32)preLen;
-        growTouch(s.a, (size_t)invCap);
-        growTouch(s.b, (size_t)invCap);
-        u8* ping = s.a.data();
-        u8* pong = s.b.data();
-        if (skipFlags != 0xFF) {
-            for (int i = nbtr - 1; i >= 0; i--) {
-                if (skipFlags & (1u << (7 - i))) continue;
-                ctx.hasHisto = 0;
-                i32 olen = 0;
-                int res = transformInverse(ids[i], cur, curLen, ping, invCap, ctx, &olen);
-                if (res != 0) return -8;
-                cur = ping;
-                curLen = olen;
-                u8* t = ping; ping = pong; pong = t;
-            }
-        }
-        if (curLen > cap) return -9;
-        if (cur != dst) std::memcpy(dst, cur, curLen);
+        const i64 curLen = inverseChain(ids, nbtr, skipFlags, ctx, invCap, buf, preLen,
+                                        dst, cap);
+        if (curLen < 0) return curLen;
 
         if (checksumBits) {
             u64 checksum2 = (checksumBits == 32)

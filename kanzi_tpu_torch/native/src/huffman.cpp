@@ -536,11 +536,18 @@ int huffmanPrepare(const u8* block, i64 len, u16* tables, u8* hdr,
 //   laneBits: exact payload bits per lane row
 //   aux[c*auxStride..]: raw chunk bytes / single symbol / trailing tail bytes
 // Returns the chunk count or a negative error.
-int huffmanDecPrepare(const u8* payload, i64 payloadBytes, i64 outLen,
+int huffmanDecPrepare(const u8* payload, i64 payloadBits, i64 outLen,
                       u16* dtables, u8* lanes, i64 laneStride, i32* laneBits,
                       u8* flags, u8* aux, i64 auxStride) {
-    IBS ibs(payload, payloadBytes);
+    IBS ibs(payload, (u64)payloadBits, true);
     HufDecoder dec;
+    // the host decoder's lane buffer (HufDecoder::decodeChunk): four
+    // regions of `stride` bytes, each lane's bits at the start of its
+    // region and 8 zero bytes after them, the rest as earlier chunks left
+    // it. A lane row is the start of its region, so that a hostile lane
+    // that decodes past its own bits reads what the host decoder reads.
+    const int stride = (2 * HUF_MAX_CHUNK) / 4;
+    std::vector<u8> held(2 * HUF_MAX_CHUNK + 8, 0);
     int c = 0;
     i64 lane = 0;
     i64 startChunk = 0;
@@ -565,17 +572,18 @@ int huffmanDecPrepare(const u8* payload, i64 payloadBytes, i64 outLen,
                 u32 szBits[4];
                 for (int j = 0; j < 4; j++) {
                     szBits[j] = readVarInt(ibs);
-                    if ((i64)((szBits[j] + 7) >> 3) + 8 > laneStride) return -5;
                     laneBits[lane + j] = (i32)szBits[j];
                 }
                 for (int j = 0; j < 4; j++) {
-                    u8* row = lanes + (size_t)(lane + j) * laneStride;
-                    ibs.readArray(row, szBits[j]);
-                    // zero the refill slack past the payload (the rows come
-                    // from pooled, unzeroed scratch); mirrors the host
-                    // decoder's cleared guard
+                    // the host decoder's limit; a lane decodes from its
+                    // first laneStride bytes at most
+                    if ((i64)((szBits[j] + 7) >> 3) > (i64)stride) return -5;
+                    u8* region = held.data() + (size_t)j * stride;
+                    ibs.readArray(region, szBits[j]);
                     i64 sz = (i64)((szBits[j] + 7) >> 3);
-                    std::memset(row + sz, 0, std::min((i64)16, laneStride - sz));
+                    std::memset(region + sz, 0, (size_t)std::min((i64)8, (i64)stride - sz));
+                    std::memcpy(lanes + (size_t)(lane + j) * laneStride, region,
+                                (size_t)std::min((i64)stride, laneStride));
                 }
                 lane += 4;
                 int szFrag = sizeChunk / 4;
@@ -592,13 +600,13 @@ int huffmanDecPrepare(const u8* payload, i64 payloadBytes, i64 outLen,
 }  // namespace kz
 
 extern "C" int kz_huffman_dec_prepare(const uint8_t* payload,
-                                      int64_t payloadBytes, int64_t outLen,
+                                      int64_t payloadBits, int64_t outLen,
                                       uint16_t* dtables, uint8_t* lanes,
                                       int64_t laneStride, int32_t* laneBits,
                                       uint8_t* flags, uint8_t* aux,
                                       int64_t auxStride) {
     try {
-        return kz::huffmanDecPrepare(payload, payloadBytes, outLen, dtables,
+        return kz::huffmanDecPrepare(payload, payloadBits, outLen, dtables,
                                      lanes, laneStride, laneBits, flags, aux,
                                      auxStride);
     } catch (const std::exception&) {

@@ -188,6 +188,8 @@ class OBS {
 class IBS {
   public:
     IBS(const u8* buf, i64 len) : buf_(buf), nbits_((u64)len * 8), pos_(0) {}
+    // a stream of `nbits` bits, its last byte partial where nbits % 8 != 0
+    IBS(const u8* buf, u64 nbits, bool) : buf_(buf), nbits_(nbits), pos_(0) {}
 
     inline int readBit() { return (int)readBits(1); }
 

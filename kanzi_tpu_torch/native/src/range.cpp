@@ -148,8 +148,11 @@ struct RangeDecoder {
 
     inline u8 decodeByte() {
         rng >>= shift;
-        int count = (int)((code - low) / rng);
-        if (count >= (int)f2s.size()) throw Error("invalid range state");
+        // the quotient is compared before it is narrowed: a hostile state
+        // can give one past 2^31, which an int cast would make negative
+        const u64 q = (code - low) / rng;
+        if (q >= (u64)f2s.size()) throw Error("invalid range state");
+        const int count = (int)q;
         u16 symbol = f2s[count];
         u64 cumFreq = cumFreqs[symbol];
         low += cumFreq * rng;
@@ -296,17 +299,18 @@ extern "C" int64_t kz_range_assemble(const uint8_t* block, int64_t len,
 // chunk's last renorm read ended), so boundaries are only known after
 // decoding — the host parses the header at bitPos, byte-aligns the rest of
 // the payload into buf for the device scan, and advances its cursor by
-// 60 + 28*nreads afterwards.  meta out: [0]=shift, [1]=flag (0 device /
-// 2 single-symbol), [2]=aux symbol.  Returns the bit position just past
-// the header, or a negative error code (caller falls back to host decode).
+// 60 + 28*nreads afterwards.  The payload holds payloadBits bits.  meta
+// out: [0]=shift (logRange, 8..15), [1]=flag (0 device / 2 single-symbol),
+// [2]=aux symbol.  f2s gets the chunk's 1 << shift slots (up to 32768).
+// Returns the bit position just past the header, or a negative error code.
 extern "C" int64_t kz_range_dec_chunk(const uint8_t* payload,
-                                      int64_t payloadBytes, int64_t bitPos,
+                                      int64_t payloadBits, int64_t bitPos,
                                       int32_t* tables, uint8_t* f2s,
                                       int32_t* meta, uint8_t* buf,
                                       int64_t bufCap) {
     try {
         using namespace kz;
-        IBS ibs(payload, payloadBytes);
+        IBS ibs(payload, (u64)payloadBits, true);
         for (i64 skip = bitPos; skip > 0;) {
             int b = (int)std::min<i64>(skip, 48);
             ibs.readBits(b);
@@ -317,12 +321,11 @@ extern "C" int64_t kz_range_dec_chunk(const uint8_t* payload,
         if (alpha == 0) return -3;
         i64 hdrEnd = (i64)ibs.read();
         if (alpha == 1) {
-            meta[0] = 0;
+            meta[0] = (i32)dec.shift;
             meta[1] = 2;
             meta[2] = dec.alphabet[0];
             return hdrEnd;
         }
-        if ((i64)dec.f2s.size() > 4096) return -4;
         meta[0] = (i32)dec.shift;
         meta[1] = 0;
         meta[2] = 0;
@@ -330,15 +333,16 @@ extern "C" int64_t kz_range_dec_chunk(const uint8_t* payload,
             tables[i] = (i32)dec.cumFreqs[i];
             tables[256 + i] = dec.freqs[i];
         }
-        std::memset(f2s, 0, 4096);
         for (size_t i = 0; i < dec.f2s.size(); i++) f2s[i] = (u8)dec.f2s[i];
         // byte-align the remaining payload bits into buf (+ zero guard)
-        i64 rest = payloadBytes * 8 - hdrEnd;
+        i64 rest = payloadBits - hdrEnd;
         if (rest < 0) return -5;
         i64 copyBits = std::min(rest, (bufCap - 16) * 8);
         if (copyBits < 0) return -6;
-        std::memset(buf, 0, (size_t)bufCap);
         if (copyBits > 0) ibs.readArray(buf, (u64)copyBits);
+        // a zero guard after the copy; nothing past it is read
+        const i64 used = (copyBits + 7) >> 3;
+        std::memset(buf + used, 0, (size_t)std::min<i64>(16, bufCap - used));
         return hdrEnd;
     } catch (const std::exception& e) {
         if (std::getenv("KZ_DEBUG")) std::fprintf(stderr, "kz_range_dec_chunk: %s\n", e.what());

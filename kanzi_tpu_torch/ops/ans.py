@@ -117,7 +117,7 @@ def encode_chunks(syms: torch.Tensor, ngroups: torch.Tensor,
 
 
 def _decode_chunks_plain(bufs, nbytes, states0, f2s, dtabs, ngroups, lr,
-                         order, glen):
+                         order, glen, host=False):
     K.count_plain("ans_decode")
     B, S = bufs.shape
     F = f2s.shape[1]
@@ -159,8 +159,13 @@ def _decode_chunks_plain(bufs, nbytes, states0, f2s, dtabs, ngroups, lr,
             slot = x & mask
             idx = ((prv[j] << lr) + slot).clamp(max=F - 1) if order else slot
             c = torch.gather(fc, 1, idx)
-            y = ((c & m32) * (x >> lr) + slot - ((c >> s32) & m32)) & m32
-            flag = y < top
+            if host:             # the host decoder's int state: shifts and
+                xs = torch.where(x >= 1 << 31, x - (1 << 32), x)    # compares signed
+                y = ((c & m32) * (xs >> lr) + slot - ((c >> s32) & m32)) & m32
+                flag = (y < top) | (y >= 1 << 31)
+            else:
+                y = ((c & m32) * (x >> lr) + slot - ((c >> s32) & m32)) & m32
+                flag = y < top
             st[j] = torch.where(flag, ((y << s16) | torch.gather(pair, 1, n)) & m32, y)
             n = n + 2 * (flag & v)
             prv[j] = torch.gather(sym_all, 1, idx)
@@ -175,7 +180,7 @@ def _decode_chunks_plain(bufs, nbytes, states0, f2s, dtabs, ngroups, lr,
 def decode_chunks(bufs: torch.Tensor, nbytes: torch.Tensor,
                   states0: torch.Tensor, f2s: torch.Tensor,
                   dtabs: torch.Tensor, ngroups: torch.Tensor, lr: torch.Tensor,
-                  order: int, glen: int):
+                  order: int, glen: int, host: bool = False):
     """4-state forward rANS decode for a batch of chunks.
 
     bufs:    (B, S)     uint8  renorm byte streams
@@ -188,6 +193,10 @@ def decode_chunks(bufs: torch.Tensor, nbytes: torch.Tensor,
     ngroups: (B,)       int32  symbol groups per chunk
     lr:      (B,)       int32  logRange per chunk, 8..16
     order:   0 or 1;  glen: groups in the output
+    host:    the host decoder's rule for a state with bit 31 set (the
+             engine's call): its state is an int, so it shifts down and
+             compares with ANS_TOP signed; kanzi_tpu's reads it as u32. No
+             valid stream has such a state.
 
     Returns (syms (B, glen, 4) uint8 with column j = state j's symbol in
     group g, zero past ngroups; nread (B,) int32 bytes consumed, where the
@@ -217,7 +226,7 @@ def decode_chunks(bufs: torch.Tensor, nbytes: torch.Tensor,
         raise ValueError("decode_chunks: empty rows or negative glen")
     if route == "plain":
         return _decode_chunks_plain(bufs, nbytes, states0, f2s, dtabs, ngroups,
-                                    lr, order, glen)
+                                    lr, order, glen, host)
     out = torch.empty(B, glen, 4, dtype=torch.uint8, device=dev)
     nread = torch.empty(B, dtype=torch.int32, device=dev)
     # rows whose table does not fit shared memory read one that the call
@@ -229,7 +238,7 @@ def decode_chunks(bufs: torch.Tensor, nbytes: torch.Tensor,
              nbytes.data_ptr(), states0.data_ptr(), f2s.data_ptr(), F,
              dtabs.data_ptr(), T, ngroups.data_ptr(), lr.data_ptr(), order, B,
              glen, out.data_ptr(), nread.data_ptr(), scratch.data_ptr(),
-             scratch.numel())
+             scratch.numel(), int(host))
     return out, nread
 
 

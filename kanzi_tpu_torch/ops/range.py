@@ -42,15 +42,23 @@ class _Consts:
         self.s28, self.s32 = t(28), t(32)
 
 
-def _renorm(k, low, rng, active):
+def _emits(k, low, rng):
+    """Whether the renormalization loop emits a word at this state: the top
+    28 of the 60 bits of low and low + range agree, or the range is small."""
+    return (((low ^ (low + rng)) & k.rmask) == 0) | (rng <= k.bottom)
+
+
+def _renorm(k, low, rng, active, m=None):
     """One pass of the renormalization loop for every row: returns (emit,
     low, rng). Where the loop goes on with a small range, the range is
-    clamped first, as the reference does; an emission shifts both by 28."""
+    clamped first, as the reference does; an emission shifts both by 28,
+    and low is masked by `m` (60 bits by default)."""
+    m = k.m60 if m is None else m
     diff = ((low ^ (low + rng)) & k.rmask) != 0
     small = rng <= k.bottom
     rng = torch.where(active & diff & small, (-low) & k.bottom, rng)
     emit = active & (small | ~diff)
-    low = torch.where(emit, (low << k.s28) & k.m60, low)
+    low = torch.where(emit, (low << k.s28) & m, low)
     rng = torch.where(emit, (rng << k.s28) & k.m60, rng)
     return emit, low, rng
 
@@ -136,16 +144,33 @@ def encode_chunks(syms: torch.Tensor, nvalid: torch.Tensor,
     return words, nwords, lows
 
 
-def _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen):
+def _udiv_cap(d, r2, cap):
+    """min(d // r2, cap) for d read as u64 (an int64 of any sign) and
+    0 < r2 < 2^62: one signed division of d's top 63 bits."""
+    half = (d >> 1) & ((1 << 63) - 1)
+    qh = half // r2
+    small = qh < cap
+    qh = torch.where(small, qh, 0)
+    rest = d - 2 * qh * r2                     # in [0, 2 * r2): no sign
+    q = 2 * qh + (rest >= r2).long()
+    return torch.where(small, torch.minimum(q, cap), cap)
+
+
+def _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen,
+                         nbits=None, bound=None):
     K.count_plain("range_decode")
     B, S = bufs.shape
+    F = f2s.shape[1]
     dev = bufs.device
     k = _Consts(dev)
+    strict = bound is not None
     nb = nbytes.long().clamp(0, S)[:, None]
+    nbit = 8 * nb if nbits is None else torch.minimum(nbits.long().clamp(min=0)[:, None], 8 * nb)
     b = torch.cat([bufs.long(), torch.zeros(B, 8, dtype=torch.int64, device=dev)], 1)
     b = torch.where(torch.arange(S + 8, device=dev)[None, :] < nb, b, 0)
     # the 28-bit read at every position k (bit 60 + 28k) that can lie in
-    # the row, zero bytes past nbytes; reads from kbad on reach past it
+    # the row, zero bytes past nbytes; reads from kbad on reach past the
+    # row's bits
     kmax = max(0, (8 * S - 60) // 28 + 1)
     off = 60 + 28 * torch.arange(kmax + 1, device=dev)[None, :]
     byte = (off >> 3).clamp(max=S + 3)
@@ -153,11 +178,11 @@ def _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen):
     for j in range(5):
         win = (win << 8) | torch.gather(b, 1, (byte + j).expand(B, -1))
     reads = (win >> (12 - (off & 7))) & 0xFFFFFFF
-    kbad = (((off + 27) >> 3) < nb).sum(1, keepdim=True)
+    kbad = (off + 28 <= nbit).sum(1, keepdim=True)
     head = torch.zeros(B, 1, dtype=torch.int64, device=dev)
     for j in range(8):
         head = (head << 8) | b[:, j:j + 1]
-    code = head >> 4
+    code = (head >> 4) & _M60                  # the first 60 bits
     nv = nvalid.long().clamp(0, glen)[:, None]
     # freq slot -> (cumFreq | freq << 32), both read as u32 as kanzi_tpu
     # reads them: one gather a step; the symbols are gathered at the end
@@ -165,39 +190,57 @@ def _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen):
     comb = (torch.gather(tables[:, 0].long() & _M32, 1, sym_all)
             | (torch.gather(tables[:, 1].long() & _M32, 1, sym_all) << 32))
     sh = shifts.long().clamp(0, 63)[:, None]
+    # the host decoder's state is u64: low and code keep the bits a shift
+    # moves past bit 59 (strict); kanzi_tpu's is 60 bits wide
+    m = torch.tensor(-1 if strict else _M60, device=dev)
+    cap = torch.tensor(F if strict else F - 1, device=dev)
+    lim = bound.long().clamp(min=0)[:, None] if strict else None
     low = torch.zeros(B, 1, dtype=torch.int64, device=dev)
     rng = torch.full((B, 1), _TOP, dtype=torch.int64, device=dev)
     nr = torch.zeros(B, 1, dtype=torch.int64, device=dev)
+    bad = torch.zeros(B, 1, dtype=torch.bool, device=dev)
     every = torch.ones(B, 1, dtype=torch.bool, device=dev)
-    c4095, m32 = torch.tensor(4095, device=dev), torch.tensor(_M32, device=dev)
     slots = torch.zeros(B, glen, dtype=torch.int64, device=dev)
     # rows past their nvalid run on; only their read count is held
     for i in range(glen):
+        live = i < nv
         r2 = rng >> sh
-        d = (code - low) & k.m60
-        q = torch.where(r2 == 0, c4095, torch.minimum(d // r2.clamp(min=1), c4095))
+        d = (code - low) & m
+        if strict:
+            q = _udiv_cap(d, r2.clamp(min=1), cap)
+            # the host's quotient past its slot table throws
+            bad |= live & (q >= lim)
+            q = q.clamp(max=F - 1)
+        else:
+            q = torch.where(r2 == 0, cap, torch.minimum(d // r2.clamp(min=1), cap))
         c = torch.gather(comb, 1, q)
         slots[:, i:i + 1] = q
-        low = (low + (c & m32) * r2) & k.m60
-        rng = (((c >> k.s32) & m32) * r2) & k.m60
+        low = (low + (c & _M32) * r2) & m
+        rng = (((c >> k.s32) & _M32) * r2) & k.m60
         active = every
         for _ in range(2):
-            emit, low, rng = _renorm(k, low, rng, active)
+            emit, low, rng = _renorm(k, low, rng, active, m)
             if not emit.any():
                 break
             r28 = torch.gather(reads, 1, nr.clamp(max=kmax))
-            code = torch.where(emit, ((code << k.s28) & k.m60) | r28, code)
-            nr = nr + (emit & (i < nv))
+            code = torch.where(emit, ((code << k.s28) & m) | r28, code)
+            nr = nr + (emit & live)
             active = emit
+        if strict and active.any():
+            # a third emission: the host's loop goes on to the stream's end
+            # (a range of 0 always comes here)
+            bad |= live & active & _emits(k, low, rng)
     out = torch.gather(sym_all, 1, slots)
     out = torch.where(torch.arange(glen, device=dev)[None, :] < nv, out, 0)
-    err = (nr > kbad) | ((nv > 0) & (nb < 8))
+    err = bad | (nr > kbad) | ((nv > 0) & (nbit < 60))
     return out.to(torch.uint8), torch.where(err, -1, nr)[:, 0].to(torch.int32)
 
 
 def decode_chunks(bufs: torch.Tensor, nbytes: torch.Tensor,
                   tables: torch.Tensor, f2s: torch.Tensor,
-                  shifts: torch.Tensor, nvalid: torch.Tensor, glen: int):
+                  shifts: torch.Tensor, nvalid: torch.Tensor, glen: int,
+                  nbits: torch.Tensor | None = None,
+                  bound: torch.Tensor | None = None):
     """Range-decode a batch of chunk coder streams.
 
     bufs:   (B, S)      uint8  byte-aligned coder streams
@@ -205,10 +248,22 @@ def decode_chunks(bufs: torch.Tensor, nbytes: torch.Tensor,
                                reach past it returns 0 there and sets the
                                row's error flag
     tables: (B, 2, 256) int32  planes cumFreq, freq
-    f2s:    (B, 4096)   uint8  freq slot -> symbol
+    f2s:    (B, F)      uint8  freq slot -> symbol, F 4096 or 32768 (the
+                               format's logRange 15)
     shifts: (B,)        int32  per-chunk logRange
     nvalid: (B,)        int32  bytes to decode per row
     glen:   bytes in the output (rows decode min(nvalid, glen))
+    nbits:  (B,)        int32  optional: the row's stream ends inside its
+                               last byte, after nbits bits
+    bound:  (B,)        int32  optional: the host decoder's rules for a
+                               hostile row (the engine's call). Its state is
+                               u64, and the row's error flag is set where the
+                               host decoder throws or reads on to the end of
+                               the stream: a quotient at or past `bound`
+                               (the size of its slot table), a range of 0,
+                               a byte that would emit a third word. Without
+                               it, kanzi_tpu's rules: a 60-bit state, the
+                               quotient capped at F - 1.
 
     Returns (syms (B, glen) uint8, zero past nvalid; nreads (B,) int32, the
     number of 28-bit renorm reads, so that the row's stream takes 60 +
@@ -223,19 +278,27 @@ def decode_chunks(bufs: torch.Tensor, nbytes: torch.Tensor,
     K.check(f2s, "f2s", (torch.uint8,), 2, dev)
     K.check(shifts, "shifts", (torch.int32,), 1, dev)
     K.check(nvalid, "nvalid", (torch.int32,), 1, dev)
+    for name, t in (("nbits", nbits), ("bound", bound)):
+        if t is not None:
+            K.check(t, name, (torch.int32,), 1, dev)
+            if t.shape[0] != bufs.shape[0]:
+                raise ValueError(f"decode_chunks: expected {name} (B,)")
     B, S = bufs.shape
     if (nbytes.shape[0] != B or shifts.shape[0] != B or nvalid.shape[0] != B
-            or tables.shape != (B, 2, 256) or f2s.shape != (B, 4096)):
+            or tables.shape != (B, 2, 256) or f2s.shape[0] != B
+            or f2s.shape[1] not in (4096, 32768)):
         raise ValueError("decode_chunks: expected nbytes, shifts, nvalid (B,), "
-                         f"tables (B, 2, 256), f2s (B, 4096) for B={B}")
+                         f"tables (B, 2, 256), f2s (B, 4096 or 32768) for B={B}")
     if S < 1 or glen < 0:
         raise ValueError("decode_chunks: empty rows or negative glen")
     if route == "plain":
-        return _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen)
+        return _decode_chunks_plain(bufs, nbytes, tables, f2s, shifts, nvalid, glen,
+                                    nbits, bound)
     out = torch.empty(B, glen, dtype=torch.uint8, device=dev)
     nreads = torch.empty(B, dtype=torch.int32, device=dev)
     K.launch("range_decode", "kz_range_decode", dev, bufs.data_ptr(), S,
-             nbytes.data_ptr(), tables.data_ptr(), f2s.data_ptr(),
+             nbytes.data_ptr(), tables.data_ptr(), f2s.data_ptr(), f2s.shape[1],
              shifts.data_ptr(), nvalid.data_ptr(), B, glen, out.data_ptr(),
-             nreads.data_ptr())
+             nreads.data_ptr(), 0 if nbits is None else nbits.data_ptr(),
+             0 if bound is None else bound.data_ptr())
     return out, nreads

@@ -32,6 +32,8 @@ _SPEC = {
     "ans_tables": (3, torch.int32),  # (R, 5, S) xMax, bias, cmplFreq, invShift, invFreq
     "bufs": (2, torch.uint8),        # (R, S) renorm byte streams
     "nbytes": (1, torch.int32),      # (R,) bytes of each row's stream
+    "nbits": (1, torch.int32),       # (R,) bits of each row's stream
+    "bound": (1, torch.int32),       # (R,) the host decoder's slot table size
     "states0": (2, torch.int32),     # (R, 4) initial states, u32 bits
     "f2s": (2, torch.uint8),         # (R, F) freq slot -> symbol
     "dtabs": (3, torch.int32),       # (R, 2, T) freq, cumFreq

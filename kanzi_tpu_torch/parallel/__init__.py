@@ -235,7 +235,7 @@ def mesh_decode_hooks(mesh: Mesh) -> dict:
             mesh, streams, batch, {},
             lambda st: ops_ans.decode_chunks(st["bufs"], st["nbytes"], st["states0"],
                                              st["f2s"], st["dtabs"], st["ngroups"],
-                                             st["lr"], order, glen)).get()
+                                             st["lr"], order, glen, host=True)).get()
 
     return {"huffman": shard_huffman_decode(mesh), "ans": ans}
 

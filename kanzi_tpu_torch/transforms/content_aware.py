@@ -33,7 +33,7 @@ class _NativeOrSkip(Transform):
                   getattr(self, "seq_required", 0))
         try:
             out, self.ctx = native.transform_forward(self.ttype, src, self.ctx, cap)
-        except (native.NativeSkip, RuntimeError):
+        except (native.NativeSkip, native.NativeError):
             raise TransformSkip()
         return np.frombuffer(out, dtype=np.uint8)
 

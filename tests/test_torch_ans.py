@@ -278,13 +278,18 @@ def test_corrupted_ans_block_raises_without_host_fallback(monkeypatch):
     monkeypatch.setattr(host_ans, "ans_decode", no_host)
     monkeypatch.setattr(native, "entropy_decode", no_host)
     assert kt.decompress(blob, device="cpu") == data
-    # a header the prepare rejects, renorm reads that leave their chunk's
-    # stream (the kernel's error flag), and a decode that fails the checksum
-    for pos, code, msg in ((55, ERR_PROCESS_BLOCK, "prepare"),
-                           (len(blob) // 2, ERR_PROCESS_BLOCK, "renorm reads"),
-                           (len(blob) - 48, ERR_CRC_CHECK, "checksum")):
+    # a header the prepare rejects; renorm reads that leave their chunk's
+    # stream (the kernel's error flag), which the host decoder reads on
+    # from its buffer: the block decodes again on that buffer (a second
+    # launch) and fails the checksum, as on the host; a decode that fails
+    # the checksum
+    for pos, code, msg, launches in ((55, ERR_PROCESS_BLOCK, "prepare", 0),
+                                     (len(blob) // 2, ERR_CRC_CHECK, "checksum", 2),
+                                     (len(blob) - 48, ERR_CRC_CHECK, "checksum", 1)):
         bad = bytearray(blob)
         bad[pos] ^= 0xFF
+        _kernels.reset_counts()
         with pytest.raises(KanziError, match=msg) as ei:
             kt.decompress(bytes(bad), device="cpu")
         assert ei.value.code == code, (pos, str(ei.value))
+        assert _kernels.plain_calls["ans_decode"] == launches, pos

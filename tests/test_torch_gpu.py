@@ -376,7 +376,7 @@ def test_range_decode_kernel_matches_plain(card):
         bit_pos = 0
         for start in range(0, len(data), range_device._CHUNK):
             size = min(range_device._CHUNK, len(data) - start)
-            hdr_end, single, batch = range_device.chunk_batch(src, bit_pos, size)
+            hdr_end, single, batch, _held = range_device.chunk_batch(src, bit_pos, size)
             assert batch is not None, name
             st = to_port_state(batch, card)
             _s, nr = ops_range.decode_chunks(*(st[k] for k in _RANGE_KEYS), size)
@@ -878,3 +878,126 @@ def test_dryrun_multichip_on_card(card):
     for k in ("pack_lanes", "decode_lanes", "ans_encode", "ans_decode", "range_encode",
               "range_decode", "block_stats"):
         assert _kernels.launches[k] > 0, k
+
+
+# -- the decode contract on hostile and legacy streams, on the card ---------
+# Each stream's outcome on a device="cuda" Reader must equal the host C++
+# route's (device=None) on the same bytes: the same bytes, or KanziError
+# with the same code; never a DeviceFault. After every rejection a good
+# stream still decodes exactly and torch.cuda.synchronize() raises nothing.
+
+_HOSTILE = {"level2": dict(level=2), "level3": dict(level=3), "level5": dict(level=5),
+            "ANS1": dict(transform="NONE", entropy="ANS1"),
+            "RANGE": dict(transform="LZ", entropy="RANGE")}
+_ENTROPY = {"level2": "HUFFMAN", "level3": "HUFFMAN", "level5": "ANS0", "ANS1": "ANS1",
+            "RANGE": "RANGE"}
+
+
+def _after_rejection(card, good, data, jobs):
+    assert kt.decompress(good, jobs=jobs, device="cuda") == data
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("jobs", [1, 4])
+@pytest.mark.parametrize("codec", sorted(_HOSTILE))
+def test_hostile_streams_match_host_on_card(card, codec, jobs):
+    from kanzi_tpu_torch import robustness
+    from kanzi_tpu_torch.bench import synth_corpus
+    data = synth_corpus(1 << 20, 11)[:256 << 10]
+    rng = np.random.default_rng(jobs * 7 + sorted(_HOSTILE).index(codec))
+    for checksum in (32, 0):
+        good = kt.compress(data, block_size=64 << 10, checksum=checksum, jobs=4,
+                           device=None, **_HOSTILE[codec])
+        for kind in ("xor",) * 5 + ("payload",) * 3 + ("trunc",) * 3 + ("header",) * 3 \
+                + ("size",) * 2 + ("logrange", "chunksize"):
+            bad = robustness.mutate(good, kind, _ENTROPY[codec], rng)
+            if bad is None:
+                continue
+            got = robustness.outcome(lambda: kt.decompress(bad, jobs=jobs, device="cuda"))
+            want = robustness.outcome(lambda: kt.decompress(bad, jobs=jobs, device=None))
+            assert got == want, (kind, checksum)
+            if checksum:
+                assert got[0] == "KanziError" or got == robustness.outcome(lambda: data)
+            if got[0] == "KanziError":
+                _after_rejection(card, good, data, jobs)
+
+
+@pytest.mark.parametrize("jobs", [1, 4])
+def test_legacy_streams_match_host_on_card(card, jobs):
+    """Legacy streams (bitstream versions 1-5, the spec-model writers)
+    decode natively on a device Reader too, as on the host route; their
+    truncations and byte flips give the host route's outcome."""
+    from kanzi_tpu_torch import robustness
+    from specmodel import legacy_v14 as l14, legacy_v5 as l5
+    data = _text(40000) + np.random.default_rng(3).integers(0, 40, 20000,
+                                                           dtype=np.uint8).tobytes()
+    blobs = [l14.compress_legacy(data, v, 5, lambda b: spec_ans.ans_encode(b, 0), 65536)
+             for v in (2, 4)]
+    blobs.append(l14.compress_legacy(data, 1, 8, lambda b: l14.ans_encode_v1(b, 1), 65536))
+    blobs.append(l5.compress_v5_huffman(data, 16384))
+    rng = np.random.default_rng(5)
+    for blob in blobs:
+        variants = [blob, blob[:len(blob) // 2], blob[:-1]]
+        for _ in range(3):
+            b = bytearray(blob)
+            b[int(rng.integers(0, len(b)))] ^= int(rng.integers(1, 256))
+            variants.append(bytes(b))
+        for v in variants:
+            got = robustness.outcome(lambda: kt.decompress(v, jobs=jobs, device="cuda"))
+            assert got == robustness.outcome(lambda: kt.decompress(v, jobs=jobs, device=None))
+        torch.cuda.synchronize()
+
+
+def test_robustness_streams_on_card(card):
+    """A short run of chip_smoke.py's robustness phase: every outcome
+    equal, K4, K6 and K8 launched on the hostile streams, no plain
+    version."""
+    from kanzi_tpu_torch import robustness
+    cases = list(robustness.streams(48))
+    _kernels.reset_counts()
+    res = robustness.check(cases, lambda b, j: kt.decompress(b, jobs=j, device="cuda"),
+                           lambda b, j: kt.decompress(b, jobs=j, device=None), jobs=(1, 4))
+    torch.cuda.synchronize()
+    assert res["streams"] == 48 and not res["disagree"] and res["wrong_bytes"] == 0
+    for k in ("decode_lanes", "ans_decode", "range_decode"):
+        assert _kernels.launches[k] > 0, k
+    assert sum(_kernels.plain_calls.values()) == 0
+
+
+def test_range_wide_and_strict_rows_match_plain(card):
+    """K8 on the engine's rows (the host decoder's rules: bit counts, slot
+    table bounds, a u64 state) at logRange 12 and 15 (the wide slot table)
+    against its plain version, valid and mutated coder streams."""
+    from kanzi_tpu_torch.ops.state import to_port_state
+    rng = np.random.default_rng(15)
+    for rows in (range_device._BUF_CAP, range_device._BUF_FULL):
+        batch = []
+        for k in range(6):
+            piece = rng.integers(0, 64 if k % 2 else 256, 32768, dtype=np.uint8)
+            payload, _ = native.entropy_encode(4, piece, {"bsVersion": 6})
+            src = np.frombuffer(payload, np.uint8).copy()
+            if k >= 3:
+                src[100 + 37 * k] ^= 0x5A            # a mutated coder stream
+            _end, _s, row, _held = range_device.chunk_batch(src, 0, 32768, None, None, rows)
+            if k == 5:   # a row as after a chunk with logRange 15
+                row["f2s"] = np.concatenate([row["f2s"], rng.integers(
+                    0, 256, (1, 32768 - 4096), dtype=np.uint8)], 1)
+                row["bound"][:] = 32768
+            batch.append(row)
+        batch = device_io_stack(batch)
+        for dev in (card, torch.device("cpu")):
+            st = to_port_state(batch, dev)
+            got = ops_range.decode_chunks(
+                st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"], st["shifts"],
+                st["nvalid"], 32768, st["nbits"], st["bound"])
+            if dev == card:
+                k_syms, k_nr = (g.cpu() for g in got)
+            else:
+                assert torch.equal(k_nr, got[1]) and torch.equal(k_syms, got[0])
+        assert (k_nr[:3] > 0).all()
+    torch.cuda.synchronize()
+
+
+def device_io_stack(rows):
+    from kanzi_tpu_torch.entropy import device_io
+    return device_io.stack(rows)

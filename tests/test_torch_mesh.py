@@ -17,7 +17,7 @@ import kanzi_tpu
 import kanzi_tpu_torch as kt
 from kanzi_tpu import parallel as jax_parallel
 from kanzi_tpu_torch import _kernels, native, parallel
-from kanzi_tpu_torch.core import KanziError
+from kanzi_tpu_torch.core import ERR_PROCESS_BLOCK, KanziError
 from kanzi_tpu_torch.entropy import huffman as host_huffman
 from kanzi_tpu_torch.entropy.huffman_device import DeviceHuffmanEngine
 from kanzi_tpu_torch.kio import Reader
@@ -199,17 +199,23 @@ def test_mesh_readers_are_reentrant():
     assert bytes(o2) == d2
 
 
+@pytest.mark.parametrize("raised", ["fault", "rejection"])
 @pytest.mark.parametrize("jobs", [1, 4])
 @pytest.mark.parametrize("entropy", ["HUFFMAN", "ANS0"])
-def test_failing_hook_raises_under_block_id(entropy, jobs, monkeypatch):
+def test_failing_hook_raises_under_block_id(entropy, jobs, raised, monkeypatch):
     """A hook that raises fails the Reader under the block's id (the
-    batched and the per-block path); the host decoder never runs."""
+    batched and the per-block path); the host decoder never runs. A
+    failure of the card (DeviceFault) leaves as a DeviceFault, never as a
+    corrupt block; a data rejection (KanziError) as KanziError with its
+    code."""
     data = _corpus(12 << 10)
     blob = kt.compress(data, transform="NONE", entropy=entropy, block_size=4 << 10,
                        checksum=32, device=None)
 
     def broken(*_a):
-        raise RuntimeError("card lost")
+        if raised == "fault":
+            raise _kernels.DeviceFault("card lost")
+        raise KanziError("payload refused", ERR_PROCESS_BLOCK)
 
     def no_host(*_a, **_k):
         raise AssertionError("the host decoder ran on the mesh path")
@@ -218,8 +224,14 @@ def test_failing_hook_raises_under_block_id(entropy, jobs, monkeypatch):
     monkeypatch.setattr(native, "entropy_decode", no_host)
     r = Reader(blob, jobs=jobs, device="cpu",
                ctx={"deviceDecodeHooks": {"huffman": broken, "ans": broken}})
-    with pytest.raises(KanziError, match="Block 1: card lost"):
-        r.read_all()
+    if raised == "fault":
+        with pytest.raises(_kernels.DeviceFault, match="Block 1.*: card lost") as info:
+            r.read_all()
+        assert not isinstance(info.value, KanziError)
+    else:
+        with pytest.raises(KanziError, match="Block 1: payload refused") as info:
+            r.read_all()
+        assert info.value.code == ERR_PROCESS_BLOCK
 
 
 def test_mesh_writer_engines_and_routes():

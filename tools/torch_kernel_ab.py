@@ -77,7 +77,7 @@ def call(fn, args, outs):
 
 def cases(torch, kt, native, raw, cuda):
     """case name -> (ops module, wrapper name, args, output arguments, reps)."""
-    from kanzi_tpu_torch.entropy import ans_device, range_device
+    from kanzi_tpu_torch.entropy import ans_device, device_io, range_device
     from kanzi_tpu_torch.entropy.huffman_device import DeviceHuffmanEngine
     from kanzi_tpu_torch.ops.state import to_port_state
 
@@ -125,7 +125,8 @@ def cases(torch, kt, native, raw, cuda):
         args = (st["ans_syms"], st["ngroups"], st["ans_tables"])
         out[f"{label} {list(args[0].shape)}"] = ("ans", "encode_chunks", args, {}, reps)
     # K6: one block's host ANS0 payload (level 5) and one raw block's ANS1
-    # payload, as the Reader decodes them
+    # payload, as the Reader decodes them (with the host rule, where the
+    # wrapper takes it)
     for label, etype, order, post, reps in (("K6 ANS0", 5, 0, posts5[0], 10),
                                             ("K6 ANS1", 8, 1, raw[0], 3)):
         payload, _ = native.entropy_encode(etype, post, {"bsVersion": 6})
@@ -135,21 +136,24 @@ def cases(torch, kt, native, raw, cuda):
         args = tuple(st[k] for k in ("bufs", "nbytes", "states0", "f2s", "dtabs", "ngroups",
                                      "lr")) + (order, glen)
         out[f"{label} {[len(batch['ngroups']), glen, 4]}"] = ("ans", "decode_chunks", args,
-                                                            {}, reps)
+                                                            {"host": True}, reps)
 
     # K7: the RANGE Writer's batch (transform LZ, jobs=4: four 4 MiB
-    # blocks); K8: the first chunk of one block's host RANGE payload
+    # blocks); K8: the first chunks of the four blocks' host RANGE payloads
     posts_lz = cs.transform_posts(native, kt, raw[:4], "LZ", "RANGE")
     st = to_port_state(range_device.DeviceRangeEngine(cuda).encode_batch(posts_lz)[1], cuda)
     args = (st["rng_syms"], st["nvalid"], st["rng_tables"], st["shifts"])
     out[f"K7 {list(args[0].shape)}"] = ("range", "encode_chunks", args, {}, 10)
-    payload, _ = native.entropy_encode(4, posts_lz[0], {"bsVersion": 6})
-    _, _, batch = range_device.chunk_batch(np.frombuffer(payload, np.uint8), 0,
-                                           range_device._CHUNK)
+    # (the batched Reader's four rows; the engine's host rules, `nbits` and
+    # `bound`, where the wrapper takes them)
+    batch = device_io.stack([range_device.chunk_batch(np.frombuffer(
+        native.entropy_encode(4, p, {"bsVersion": 6})[0], np.uint8), 0,
+        range_device._CHUNK)[2] for p in posts_lz])
     st = to_port_state(batch, cuda)
     args = (st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"], st["shifts"],
             st["nvalid"], range_device._CHUNK)
-    out[f"K8 [1, {range_device._CHUNK}]"] = ("range", "decode_chunks", args, {}, 20)
+    out[f"K8 [{len(posts_lz)}, {range_device._CHUNK}]"] = (
+        "range", "decode_chunks", args, {"nbits": st["nbits"], "bound": st["bound"]}, 20)
     # K9: a corpus block and the period-2 block, as the BWT forward sorts them
     for label, blk in (("corpus", raw[0]), ("period2", cs.period2_block(len(raw[0])))):
         out[f"K9 {label}"] = ("suffix_sort", "prefix_double",
