@@ -25,8 +25,10 @@ Phases, each failing hard (no exception is caught):
    2, 3 and 5 on the card, and its first 16 MiB through the ANS1 and RANGE
    codecs, byte-identical to the host C++ path, each decoded with the
    `jobs` it was encoded with, each path read by the launch counters; the
-   device decode's launches of each run checked: one a batch of blocks
-   (K4, K6), the longest block's chunk count a batch at most (K8);
+   device decode's launches of each run checked: one a wide batch of
+   blocks (K4, K6; the Reader's device_batch_frames at -j 4: 64 blocks of
+   4 MiB on an H100, so one for the 16 blocks), the longest block's chunk
+   count a wide batch at most (K8);
 4. cli: the corpus, written to a temporary file, through the CLI
    (kanzi_tpu_torch.app.main in-process) at -l 2 and -l 5 (three runs of
    --device cuda and --device none in turns) and the first 16 MiB at
@@ -653,14 +655,22 @@ def block_stats_kernels(torch, K, block_stats, blocks, results) -> None:
                                   short_rows=rows)
 
 
+def wide_batches(torch, nblocks: int) -> int:
+    """The device Reader's wide batches (device_batch_frames) in a stream
+    of `nblocks` blocks of BLOCK bytes at jobs=4 on the card."""
+    from kanzi_tpu_torch.kio.compressed_stream import device_batch_frames
+
+    return -(-nblocks // device_batch_frames(torch.device("cuda"), BLOCK, 4))
+
+
 def run_path(torch, kt, K, label, data, reps, kw, kernels, decode_limits) -> dict:
     """One slice path: `reps` runs of the device and the host C++ paths in
     turns, byte-identical streams decoded to the input, each decoded with
     the `jobs` it was encoded with. The launch counts are set to 0 just
     before and read just after; returns them. The device decode's launches
     of each run are checked against `decode_limits` (kernel -> the most
-    one decode may make: one a batch, or the longest block's chunks a batch
-    for K8), which shows that the Reader batches its blocks."""
+    one decode may make: one a wide batch, or the longest block's chunks a
+    wide batch for K8), which shows that the Reader batches its blocks."""
     K.reset_counts()
     runs = {k: [] for k in ("device encode", "device decode",
                             "host C++ encode", "host C++ decode")}
@@ -693,7 +703,7 @@ def run_path(torch, kt, K, label, data, reps, kw, kernels, decode_limits) -> dic
     for d in decode_launches:
         for k, most in decode_limits.items():
             check(0 < d[k] <= most, f"{label}: {d[k]} {k} launches in one decode, "
-                  f"at most {most} (one a batch)")
+                  f"at most {most} (one a wide batch)")
     check(sum(K.plain_calls.values()) == 0, f"{label}: a plain version ran")
     return counts
 
@@ -793,15 +803,16 @@ def cli_phase(torch, kt, K, corpus: bytes, short: bytes, range_chunks: int) -> d
             with open(path, "wb") as fh:
                 fh.write(data)
         K.reset_counts()
-        batches = CORPUS // BLOCK // 4
+        # the Writer's batches of four blocks, the Reader's wide batches
+        batches, wide = CORPUS // BLOCK // 4, wide_batches(torch, CORPUS // BLOCK)
         b = ["-b", str(BLOCK)]   # the levels' own block size (4 MiB)
         paths = {
             "level 2": cli_path(K, cli_main, tmp, "l2", src, corpus, SLICE_REPS,
                                 ["-l", "2", *b], ("pack_lanes", "decode_lanes"),
-                                CORPUS // BLOCK, batches),
+                                CORPUS // BLOCK, wide),
             "level 5": cli_path(K, cli_main, tmp, "l5", src, corpus, SLICE_REPS,
                                 ["-l", "5", *b], ("ans_encode", "ans_decode"),
-                                CORPUS // BLOCK, batches),
+                                CORPUS // BLOCK, wide),
             "ANS1": cli_path(K, cli_main, tmp, "ans1", src16, short, 1,
                              ["-e", "ANS1", "-t", "NONE", *b],
                              ("ans_encode", "ans_decode"), SHORT // BLOCK, 1),
@@ -835,7 +846,7 @@ def cli_phase(torch, kt, K, corpus: bytes, short: bytes, range_chunks: int) -> d
               "the stream API's stream does not decode on the host C++ path")
         stream_launches = {k: K.launches[k] - before[k] for k in ("pack_lanes", "decode_lanes")}
         check(stream_launches["pack_lanes"] == batches
-              and 0 < stream_launches["decode_lanes"] <= batches,
+              and 0 < stream_launches["decode_lanes"] <= wide,
               f"stream API launches {stream_launches}")
         print(f"stream API, level 2, jobs=4, 1 MiB chunks: encode "
               f"{len(corpus) / t_enc / 1e6} MB/s, decode {len(corpus) / t_dec / 1e6} "
@@ -1364,10 +1375,11 @@ def main() -> int:
         ("range_encode", "range_decode")
     short = corpus[:SHORT]
     main_launches = {k: 0 for k in K.KERNELS}
-    # one launch a batch of `jobs` blocks (every block of these paths has
-    # device chunks); RANGE: the longest block's chunk count a batch (the
-    # 16 MiB are one batch of four LZ blocks)
-    batches4, batches1 = CORPUS // BLOCK // 4, CORPUS // BLOCK
+    # one launch a wide batch of blocks at jobs=4 (every block of these
+    # paths has device chunks), one a block at jobs=1; RANGE: the longest
+    # block's chunk count a wide batch (the 16 MiB are one batch of four
+    # LZ blocks)
+    batches4, batches1 = wide_batches(torch, CORPUS // BLOCK), CORPUS // BLOCK
     range_chunks = max(-(-len(p) // range_device._CHUNK) for p in posts_lz)
     for label, data, reps, kw, kernels, limits in (
             ("level 2", corpus, SLICE_REPS, dict(level=2, jobs=4), huff,

@@ -157,6 +157,18 @@ def resolve_scan_device(device) -> torch.device:
     return dev
 
 
+# the plain versions' stand-in for a card's SM count (chains_a_wave)
+PLAIN_SMS = 16
+
+
+def chains_a_wave(device: torch.device) -> int:
+    """Rows that one wave of the one-CTA-a-row decode kernels (K6, K8) runs
+    on `device`: the card's SM count, or PLAIN_SMS for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return PLAIN_SMS
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")

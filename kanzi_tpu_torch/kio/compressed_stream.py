@@ -29,6 +29,7 @@ entropy types run on the host C++ engine on every path.
 from __future__ import annotations
 
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -763,6 +764,20 @@ class Writer:
         return (self._bw.written + 7) >> 3
 
 
+# the most decoded bytes that a wide device batch holds (device_batch_frames)
+_WIDE_BYTES = 256 << 20
+
+
+def device_batch_frames(device, block_size: int, jobs: int) -> int:
+    """Frames that the device Reader (`jobs` > 1) reads and decodes
+    together: as many rows as one wave of the chain kernels runs
+    (_kernels.chains_a_wave: the card's SM count), at most _WIDE_BYTES of
+    decoded blocks, rounded down to a multiple of `jobs` and at least
+    `jobs`."""
+    wide = min(_kernels.chains_a_wave(device), _WIDE_BYTES // block_size)
+    return max(jobs, wide - wide % jobs)
+
+
 class Reader:
     """Decompressing reader for KANZ streams (v5/v6 headers; v6 payloads).
 
@@ -774,8 +789,10 @@ class Reader:
     `device` ("cuda" by default) decodes HUFFMAN, ANS0, ANS1 and RANGE
     payloads on that device; "cpu" uses the plain PyTorch versions; None is
     the fully native host path. With `jobs` > 1, a device stream decodes
-    `jobs` blocks a launch (_read_batch_device), listeners or not; with
-    `jobs=1`, block by block, through the per-block payload path.
+    a wide batch of blocks a launch (device_batch_frames: a multiple of
+    `jobs`), listeners or not, and emits it `jobs` blocks at a time, as a
+    batch of `jobs` blocks would; with `jobs=1`, block by block, through
+    the per-block payload path.
     """
 
     _REFILL = 1 << 20       # streaming read granularity
@@ -808,6 +825,7 @@ class Reader:
         self._room: list = [None, 0, 0]
         self._outbuf_len = 0
         self._slot_out: list = []  # per-block buffers for parallel decode
+        self._groups: deque = deque()  # _decode_wide's groups not yet emitted
         self.ctx = dict(ctx) if ctx else {}
         self.ctx.setdefault("jobs", jobs)
         self.device = _kernels.resolve_device(device)
@@ -1035,9 +1053,9 @@ class Reader:
                 and not entropy_mod.decodes_on_device(self.entropy_type, self.ctx))
 
     def _device_batch(self) -> bool:
-        """The batched device decode, `jobs` frames a launch: the stream
-        decodes on the device, with no injected bit reader. Listeners get
-        their events from the batch (_read_batch_device)."""
+        """The batched device decode, a wide batch of frames a launch
+        (_decode_wide): the stream decodes on the device, with no injected
+        bit reader. Listeners get their events from the batch."""
         return (self._use_native
                 and entropy_mod.decodes_on_device(self.entropy_type, self.ctx))
 
@@ -1134,99 +1152,159 @@ class Reader:
         self._chunks_len += len(data)
         return True
 
-    def _frame_bytes(self, pos: int, bits: int) -> tuple:
+    def _frame_bytes(self, pos: int, bits: int, end=None) -> tuple:
         """A frame's payload for the device path, and its bit count: the
         frame's bits, up to its last whole byte of the stream, or what the
         stream holds of it where it is cut short (the native path decodes
-        from the stream itself, so its decoders see the same bits there)."""
+        from the stream itself, so its decoders see the same bits there).
+        `end`: the bits of the source held, all of them by default."""
+        end = 8 * len(self._src) if end is None else end
         br = BitReader(self._src)
         br._pos = pos
-        nbits = min((bits + 7) & ~7, 8 * len(self._src) - pos)
+        nbits = min((bits + 7) & ~7, end - pos)
         return br.read_array(nbits), nbits
 
-    def _rest(self, pos: int) -> tuple:
-        """The stream's bits from `pos` to the end of what it holds, and
-        their count: where the native path's decoders read from, past a
-        frame's end too."""
-        return self._frame_bytes(pos, 8 * len(self._src) - pos)
+    def _rest(self, pos: int, end=None) -> tuple:
+        """The stream's bits from `pos` to the end of what it holds (or to
+        `end`), and their count: where the native path's decoders read
+        from, past a frame's end too."""
+        end = 8 * len(self._src) if end is None else end
+        return self._frame_bytes(pos, end - pos, end)
 
-    def _read_frames(self):
-        """Read up to `jobs` frames serially (the frame reads are serialized
-        on the shared bitstream, reference v2/io/CompressedStream.go:1798-1856),
-        skipping the blocks outside ctx's from/to. Returns ([(bit position
-        of the payload, its bit length, block id)], False once the end
-        marker was consumed)."""
+    def _read_frames(self, count=None, ends=None):
+        """Read up to `count` frames (`jobs` by default) serially (the frame
+        reads are serialized on the shared bitstream, reference
+        v2/io/CompressedStream.go:1798-1856), skipping the blocks outside
+        ctx's from/to. Returns ([(bit position of the payload, its bit
+        length, block id)], False once the end marker was consumed, None).
+        With `ends` (a list), each frame appends the source bytes held once
+        it was read, and a frame read's error met after the first `jobs`
+        frames comes back in the third place instead of raising."""
         self._compact()
-        frames = []
-        more = True
-        while len(frames) < self.jobs:
-            self._ensure_bits(self._br._pos + 40)
-            br = self._br
-            lw = br.read_bits(5) + 3
-            bits = br.read_bits(lw)
-            if bits == 0:
-                more = False
-                break
-            if bits > 1 << 34:
-                raise KanziError("Invalid block size", ERR_BLOCK_SIZE)
-            self._ensure_bits(br.read + bits + 40)
-            br = self._br
-            pos = br._pos
-            br._pos = pos + bits
-            self._block_id += 1
-            frm, to = self.ctx.get("from"), self.ctx.get("to")
-            if (frm is not None and self._block_id < frm) or \
-                    (to is not None and self._block_id >= to):
-                continue
-            frames.append((pos, bits, self._block_id))
+        frames, more, error = [], True, None
+        frm, to = self.ctx.get("from"), self.ctx.get("to")
+        try:
+            while len(frames) < (count or self.jobs):
+                self._ensure_bits(self._br._pos + 40)
+                br = self._br
+                lw = br.read_bits(5) + 3
+                bits = br.read_bits(lw)
+                if bits == 0:
+                    more = False
+                    break
+                if bits > 1 << 34:
+                    raise KanziError("Invalid block size", ERR_BLOCK_SIZE)
+                self._ensure_bits(br.read + bits + 40)
+                br = self._br
+                pos = br._pos
+                br._pos = pos + bits
+                self._block_id += 1
+                if (frm is not None and self._block_id < frm) or \
+                        (to is not None and self._block_id >= to):
+                    continue
+                frames.append((pos, bits, self._block_id))
+                if ends is not None:
+                    ends.append(self._src_len)
+        except (KanziError, OSError) as e:
+            if ends is None or len(frames) < self.jobs:
+                raise
+            error = e
         if frames and int(self.ctx.get("bsVersion", BITSTREAM_FORMAT_VERSION)) < 5:
             raise KanziError(
                 "Legacy bitstream payloads (version < 5) are not supported",
                 ERR_STREAM_VERSION)
-        return frames, more
+        return frames, more, error
 
     def _read_batch_device(self) -> bool:
-        """Read up to `jobs` frames and decode them together: the frame
-        headers on the pool, the device entropy stage of the batch in one
-        launch (one per chunk index for RANGE, entropy.decode_many), the
-        inverse transforms and checksums on the pool; the outputs append
-        in block order. A block that fails raises as _read_next_block
-        would, under its own id (the first failing block of the batch); a
-        DeviceFault of the launch, under the first device block's id.
-        Listeners get decompress_block_payload's events: BEFORE_ENTROPY
-        (the decoder's ordered phase) in block order before the launch; the
-        other three, stamped on the pool when they happen, in block order
-        once the batch is done, so that a block's lines come in block order
-        as on the per-block path.
+        """Emit the next `jobs` frames' outputs: the next group of the wide
+        batch that _decode_wide read and decoded, reading and decoding the
+        next wide batch when no group is left. A group comes out as the
+        `jobs`-frame batch of the same frames would: its blocks' events and
+        outputs in block order, or the error that batch raises with
+        nothing of the group emitted (a block's rejection under its id,
+        after the events of the blocks before it; a DeviceFault under the
+        first device block's id; a frame read's error).
         Returns False once the end marker was consumed."""
-        frames, more = self._read_frames()
-        if not frames:
-            return more
+        if not self._groups:
+            self._groups.extend(self._decode_wide())
+        group = self._groups.popleft()
+        if isinstance(group, Exception):
+            raise group
+        outs, more, listeners = group
+        for block_id, out in outs:
+            if isinstance(out, Exception):
+                raise _block_error(block_id, out)
+            for evt in out[1]:
+                _notify(listeners, evt)
+        for _, (out, _) in outs:
+            self._chunks.append(out)
+            self._chunks_len += len(out)
+        return more
+
+    def _decode_wide(self) -> list:
+        """Read up to device_batch_frames() frames (`jobs` on a mesh's
+        hooks) and decode them together (_decode_frames: one launch for all
+        of them, one a chunk index for RANGE), in groups of `jobs` frames:
+        per group ([(block id, (output, events) or the rejection that
+        failed it)], False for the group that consumed the end marker, the
+        listeners), or the error that the group's `jobs`-frame batch
+        raises. The groups end at the first that fails. A frame read's
+        error met past the first `jobs` frames is the group of the frame
+        it would have read, whose frames read before it are not decoded.
+        Listeners get BEFORE_ENTROPY for every block before the launch.
+        Each frame decodes from the source bytes that its `jobs`-frame
+        batch would have held (a streaming source is read further ahead),
+        as does a block decoded again from the rest of the stream."""
+        jobs, ends = self.jobs, []
+        wide = (jobs if self.ctx.get("deviceDecodeHooks")
+                else device_batch_frames(self.device, self.block_size, jobs))
+        frames, more, error = self._read_frames(wide, ends)
+        read_to = self._src_len
+        if error is not None:
+            del frames[len(frames) - len(frames) % jobs:]
+
+        def src_end(i):
+            """The source bits that frame i's `jobs`-frame batch held: up
+            to its group's last frame, or all that was read for a group
+            that the end marker closed."""
+            last = i - i % jobs + jobs - 1
+            return 8 * (ends[last] if last < len(ends) else read_to)
+
         listeners = tuple(self.listeners)
         outs = self._decode_frames(
-            frames, [self._frame_bytes(pos, bits) for pos, bits, _ in frames], listeners)
+            frames, [self._frame_bytes(pos, bits, src_end(i))
+                     for i, (pos, bits, _) in enumerate(frames)], listeners)
         # a block its frame's bits could not decode decodes again from the
         # rest of the stream, which the native path's decoders read on into
         redo = [i for i, out in enumerate(outs)
                 if isinstance(out, _REJECTIONS) and _past_frame(out)]
         if redo:
             again = self._decode_frames([frames[i] for i in redo],
-                                        [self._rest(frames[i][0]) for i in redo], ())
+                                        [self._rest(frames[i][0], src_end(i))
+                                         for i in redo], ())
             for i, out in zip(redo, again):
                 outs[i] = out
-        for (_, _, block_id), out in zip(frames, outs):
-            if isinstance(out, Exception):
-                raise _block_error(block_id, out)
-            for evt in out[1]:
-                _notify(listeners, evt)
-        for out, _ in outs:
-            self._chunks.append(out)
-            self._chunks_len += len(out)
-        return more
+        groups = []
+        for k in range(0, len(frames), jobs):
+            part = [(f[2], out) for f, out in zip(frames[k:k + jobs], outs[k:k + jobs])]
+            fault = next((out for _, out in part
+                          if isinstance(out, _kernels.DeviceFault)), None)
+            groups.append(fault or (part, True, listeners))
+            if fault or any(isinstance(out, Exception) for _, out in part):
+                return groups
+        if error is not None:
+            groups.append(error)
+        elif not more:
+            if len(frames) % jobs:
+                groups[-1] = (groups[-1][0], False, listeners)
+            else:
+                groups.append(([], False, listeners))
+        return groups
 
     def _decode_frames(self, frames, payloads, listeners) -> list:
-        """_read_batch_device's decode of `frames` from `payloads`: per
-        block its (output, events), or the rejection that failed it."""
+        """_decode_wide's decode of `frames` from `payloads`: per block its
+        (output, events), the rejection that failed it, or the DeviceFault
+        of a launch that failed."""
         run = self._pool.map
         payloads, nbits = [p for p, _ in payloads], [n for _, n in payloads]
         heads = _each(run, lambda pn: _parse_block_header(
@@ -1248,7 +1326,8 @@ class Reader:
                 [heads[i][3] for i in dev], self.ctx, run,
                 [nbits[i] - 8 * heads[i][4] for i in dev]))) if dev else {}
         except _kernels.DeviceFault as e:
-            raise _block_fault([frames[i][2] for i in dev], e) from e
+            # every device block's outcome; the first one's group raises it
+            decoded = dict.fromkeys(dev, _block_fault([frames[i][2] for i in dev], e))
 
         def finish(i):
             if isinstance(heads[i], Exception):
@@ -1259,6 +1338,8 @@ class Reader:
                                          dict(self.ctx, payloadBits=nbits[i] - 8 * offset))
             else:
                 buf = decoded[i]
+                if isinstance(buf, _kernels.DeviceFault):
+                    return buf
                 if isinstance(buf, Exception):
                     raise buf
             block_id, events = frames[i][2], []
@@ -1284,7 +1365,7 @@ class Reader:
         (reference: frame reads are serialized on the shared bitstream,
         decodes overlap — v2/io/CompressedStream.go:1798-1856), then append
         in block order. Returns False once the end marker was consumed."""
-        frames, more = self._read_frames()
+        frames, more, _ = self._read_frames()
         if not frames:
             return more
 
@@ -1377,6 +1458,7 @@ class Reader:
         return self.read(-1)
 
     def close(self) -> None:
+        self._groups.clear()
         if self._pool is not None:
             self._pool.shutdown(wait=False)
 

@@ -6,19 +6,25 @@ restores them, the Writer's transforms run on its pool, and one launch
 chunk index for RANGE. Blocks are small because the plain ANS and range
 loops are slow on the CPU."""
 
+import re
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import kanzi_tpu
+from kanzi_tpu.core import KanziError as JaxKanziError
+from kanzi_tpu.kio import Reader as JaxReader
 import kanzi_tpu_torch as kt
 from kanzi_tpu_torch import _kernels, native
+from kanzi_tpu_torch._kernels import PLAIN_SMS
 from kanzi_tpu_torch.bitstream import BitReader
 from kanzi_tpu_torch.core import ERR_CRC_CHECK, ERR_PROCESS_BLOCK, KanziError
 from kanzi_tpu_torch.kio import Reader
-from kanzi_tpu_torch.kio.compressed_stream import _parse_block_header
+from kanzi_tpu_torch.kio.compressed_stream import _parse_block_header, device_batch_frames
 from torch_jax_native import jax_native  # noqa: F401  (builds kanzi_tpu's library once)
 
 with open(__file__.rsplit("/tests/", 1)[0] + "/SURVEY.md", "rb") as _fh:
@@ -122,35 +128,130 @@ def _count(kernel, blob, jobs):
     return _kernels.plain_calls[kernel]
 
 
+# frames a wide batch of the "cpu" route holds at jobs=4 and small blocks
+_WIDE = device_batch_frames(torch.device("cpu"), 1 << 11, 4)
+
+
 def test_ans1_batch_decodes_in_one_launch():
-    data = _TEXT[:4 << 13]                           # four device blocks
-    blob = kt.compress(data, transform="NONE", entropy="ANS1", block_size=1 << 13,
-                       jobs=4, device="cpu")
-    assert _count("ans_decode", blob, 4) == 1
-    assert _count("ans_decode", blob, 1) == 4
+    # a wide batch, then a second one of four blocks
+    data = _TEXT[:(_WIDE + 4) << 11]
+    assert len(data) == (_WIDE + 4) << 11
+    blob = kt.compress(data, transform="NONE", entropy="ANS1", block_size=1 << 11,
+                       jobs=4, device=None)
+    assert _count("ans_decode", blob, 4) == 2
+    assert _count("ans_decode", blob, 1) == _WIDE + 4
 
 
 def test_range_batch_launches_per_chunk_index():
-    # transform NONE: each 64 KiB block is two 32 KiB range chunks, the last
-    # one chunk; four blocks in the first batch, one in the second
+    # transform NONE: each 33 KiB block is two range chunks (32 KiB and 1
+    # KiB), the last block one chunk of 500 bytes; a wide batch of full
+    # blocks, then a second one of the last block alone
     rng = np.random.default_rng(2)
-    bs = 1 << 16
-    data = np.frombuffer(b"abcdefgh", np.uint8)[rng.integers(0, 8, 4 * bs + 9000)].tobytes()
+    bs = 33 << 10
+    data = np.frombuffer(b"abcdefgh", np.uint8)[
+        rng.integers(0, 8, _WIDE * bs + 500)].tobytes()
     blob = kt.compress(data, transform="NONE", entropy="RANGE", block_size=bs,
-                       jobs=4, device="cpu")
+                       jobs=4, device=None)
     assert blob == kanzi_tpu.compress(data, transform="NONE", entropy="RANGE",
                                       block_size=bs)
+    assert device_batch_frames(torch.device("cpu"), bs, 4) == _WIDE
     _kernels.reset_counts()
     assert kt.decompress(blob, jobs=4, device="cpu") == data
-    # longest block's chunks per batch (2, then 1), not their sum (9)
+    # the longest block's chunks a wide batch (2, then 1), not a sum over
+    # batches of `jobs` blocks (2 a batch, 9)
     assert _kernels.plain_calls["range_decode"] == 3
 
 
 def test_huffman_batch_decodes_in_one_launch():
-    data = _data(8, 1 << 14)
-    blob = kt.compress(data, level=2, block_size=1 << 14, jobs=4, device="cpu")
-    assert _count("decode_lanes", blob, 4) == 2     # two batches of four
+    data = _data(_WIDE + 4, 1 << 14)
+    blob = kt.compress(data, level=2, block_size=1 << 14, jobs=4, device=None)
+    assert _count("decode_lanes", blob, 4) == 2     # two wide batches
     assert _count("decode_lanes", blob, 1) > 2
+
+
+@pytest.mark.parametrize("entropy", ["RANGE", "ANS1", "HUFFMAN"])
+def test_wide_batch_spans_more_than_jobs_blocks(entropy):
+    """Nine blocks at jobs=4 decode in one wide batch: one launch (plain
+    call here), or the longest block's chunk count for RANGE (two: 33 KiB
+    blocks, the last one shorter)."""
+    kernel, bs = {"RANGE": ("range_decode", 33 << 10), "ANS1": ("ans_decode", 1 << 12),
+                  "HUFFMAN": ("decode_lanes", 1 << 12)}[entropy]
+    rng = np.random.default_rng(8)
+    data = np.frombuffer(b"abcdefgh", np.uint8)[rng.integers(0, 8, 8 * bs + 700)].tobytes()
+    blob = kt.compress(data, transform="NONE", entropy=entropy, block_size=bs,
+                       checksum=32, jobs=4, device=None)
+    assert device_batch_frames(torch.device("cpu"), bs, 4) >= 9
+    _kernels.reset_counts()
+    assert kt.decompress(blob, jobs=4, device="cpu") == data
+    assert _kernels.plain_calls[kernel] == (2 if entropy == "RANGE" else 1)
+
+
+@pytest.mark.parametrize("cuda_sms,block_size,jobs,want", [
+    (None, 4 << 20, 4, PLAIN_SMS), (None, 4 << 20, 3, PLAIN_SMS - PLAIN_SMS % 3),
+    (None, 64 << 20, 2, 4), (None, 1 << 10, 64, 64), (132, 4 << 20, 4, 64),
+    (132, 1 << 20, 4, 132), (132, 1 << 20, 8, 128), (132, 256 << 20, 4, 4)])
+def test_device_batch_frames_rule(cuda_sms, block_size, jobs, want, monkeypatch):
+    """A wide batch is one wave of chains (the SM count, PLAIN_SMS on the
+    CPU), at most 256 MiB of decoded blocks, a multiple of `jobs` and at
+    least `jobs`."""
+    device = torch.device("cpu")
+    if cuda_sms is not None:
+        device = torch.device("cuda", 0)
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda d: SimpleNamespace(multi_processor_count=cuda_sms))
+    assert device_batch_frames(device, block_size, jobs) == want
+
+
+def _read_until_error(reader, n=3000):
+    """What a read(n) loop returns before it stops: (bytes, None) at the
+    end, or (bytes, (code, block id in the message or None)) where it
+    raises."""
+    out = bytearray()
+    try:
+        while True:
+            chunk = reader.read(n)
+            if not chunk:
+                return bytes(out), None
+            out += chunk
+    except (KanziError, JaxKanziError) as e:
+        m = re.search(r"[Bb]lock (\d+)", e.msg)
+        return bytes(out), (e.code, m and int(m.group(1)))
+
+
+def _mutant(case):
+    """Ten 4 KiB HUFFMAN blocks with checksums, broken as `case` says:
+    block 6 corrupt (inside the wide batch, the second group of four);
+    block 2 corrupt and the stream cut inside frame 9's header; the stream
+    cut inside frame 9's header alone."""
+    rng = np.random.default_rng(11)
+    data = np.frombuffer(b"abcdefgh", np.uint8)[rng.integers(0, 8, 10 << 12)].tobytes()
+    blob = kt.compress(data, transform="NONE", entropy="HUFFMAN", block_size=1 << 12,
+                       checksum=32, jobs=4, device=None)
+    _, frames = _frames(blob)
+    bad = bytearray(blob)
+    for i in {"corrupt": [5], "corrupt_and_cut": [1], "cut": []}[case]:
+        _, pos, bits, _ = frames[i]
+        bad[(pos + bits // 2) >> 3] ^= 0xFF
+    if case != "corrupt":
+        bad = bad[:(frames[8][1] - 1) >> 3]
+    return bytes(bad)
+
+
+@pytest.mark.parametrize("case", ["corrupt", "corrupt_and_cut", "cut"])
+@pytest.mark.parametrize("jobs", [1, 4])
+def test_wide_batch_fails_where_a_jobs_batch_fails(jobs, case):
+    """The wide batch's outcome is the `jobs`-frame batch's, as kanzi_tpu
+    has it at the same `jobs`: the bytes a read(n) loop returns before the
+    error, the error's code and the block it names; a frame read's error
+    met while reading ahead comes out after the groups before its own."""
+    bad = _mutant(case)
+    want = _read_until_error(JaxReader(bad, jobs=jobs))
+    got = _read_until_error(Reader(bad, jobs=jobs, device="cpu"))
+    assert got == want
+    assert got[1] is not None
+    if jobs == 4:       # the groups before the failing one came out, read 3000 at a time
+        out = {"corrupt": 4, "corrupt_and_cut": 0, "cut": 8}[case] << 12
+        assert len(got[0]) == out - out % 3000
 
 
 @pytest.mark.parametrize("entropy", ["HUFFMAN", "ANS0"])

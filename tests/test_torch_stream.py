@@ -9,12 +9,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import kanzi_tpu
 import kanzi_tpu_torch as kt
 from kanzi_tpu.kio import frame_table as ref_frame_table
 from kanzi_tpu_torch import _kernels
 from kanzi_tpu_torch.kio import Writer, frame_table
+from kanzi_tpu_torch.kio.compressed_stream import device_batch_frames
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "SURVEY.md"), "rb") as _fh:
@@ -83,8 +85,8 @@ def test_device_writer_on_a_sink_matches_one_shot():
 
 def test_decompress_stream_reads_the_source_in_refills():
     """decompress_stream on a device Reader reads a file source in 1 MiB
-    pieces, decodes `jobs` blocks a batch and writes at most chunk_size a
-    write."""
+    pieces, decodes a wide batch of blocks a launch (device_batch_frames)
+    and writes at most chunk_size a write."""
     rng = np.random.default_rng(8)
     data = rng.integers(0, 256, 3 << 19, dtype=np.uint8).tobytes()   # 1.5 MiB
     blob = kt.compress(data, level=2, block_size=1 << 16, device=None)
@@ -97,8 +99,9 @@ def test_decompress_stream_reads_the_source_in_refills():
     assert dst.getvalue() == data
     assert set(src.reads) == {1 << 20}
     assert max(writes) == 1 << 20
-    # 24 blocks, 4 a batch: one plain decode a batch
-    assert _kernels.plain_calls["decode_lanes"] == 6
+    # 24 blocks, a wide batch of 16 and one of 8: one plain decode a batch
+    assert device_batch_frames(torch.device("cpu"), 1 << 16, 4) == 16
+    assert _kernels.plain_calls["decode_lanes"] == 2
 
 
 @pytest.mark.parametrize("kw", [dict(level=2, checksum=64),
