@@ -12,7 +12,9 @@ else.
 Every launch API returns ``cudaGetLastError()``; ``launch`` raises when it
 is not 0 and counts the launch. ``launches`` holds one plain integer per
 kernel, ``plain_calls`` one per plain version; both are counted under a
-lock, since Writers and Readers on several threads launch at once.
+lock, since Writers and Readers on several threads launch at once;
+``walk_counts`` counts the host's steps of the device RANGE decode's chunk
+walk beside them.
 
 A failure of the card, and not of the data, raises ``DeviceFault``: a
 refused launch, a failed build, and an error that the CUDA context reports
@@ -94,6 +96,10 @@ KERNELS = ("block_stats", "histograms_u8", "entropy1024", "pack_lanes",
            "range_decode", "prefix_double", "lf_walk", "fpaq_encode")
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
+# the host's native steps of the device RANGE decode's chunk walk: one a
+# chunk index of a batch (range_steps), and the rows it parsed again with
+# room for all that a chunk can read (range_reparsed)
+walk_counts = {"range_steps": 0, "range_reparsed": 0}
 
 _fns: dict = {}
 _lock = threading.Lock()
@@ -129,6 +135,8 @@ def reset_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
         plain_calls[k] = 0
+    for k in walk_counts:
+        walk_counts[k] = 0
 
 
 def resolve_device(device) -> torch.device | None:
@@ -264,6 +272,12 @@ def count_plain(kernel: str) -> None:
     """Count one call of `kernel`'s plain version."""
     with _lock:
         plain_calls[kernel] += 1
+
+
+def count_walk(name: str, n: int = 1) -> None:
+    """Count `n` of walk_counts[name]."""
+    with _lock:
+        walk_counts[name] += n
 
 
 def query(cfunc: str, *args):

@@ -10,11 +10,14 @@ byte-identical to the host encoder.
 Decode differs: the range format has no per-chunk stream length (a
 chunk's header begins where the previous chunk's last renorm read ended),
 so the chunks of one payload are walked one after another: the host parses
-a header (kz_range_dec_chunk), the device decodes the chunk
-(ops.range.decode_chunks), and the host advances its bit cursor by
-60 + 28*nreads. The blocks of a batch walk in lockstep, one launch per
-chunk index with a row per block (range_decode_many). `device` is a CUDA device (the kernels) or "cpu" (the
-plain PyTorch versions, used by the tests).
+a header, the device decodes the chunk (ops.range.decode_chunks), and the
+host advances its bit cursor by 60 + 28*nreads. The blocks of a batch walk
+in lockstep (range_decode_many): for each chunk index one native step
+(kz_range_dec_step) parses every block's header and writes the launch's
+rows into arrays allocated once for the batch, and one launch takes a row
+per block. chunk_batch is one block's step alone (kz_range_dec_chunk).
+`device` is a CUDA device (the kernels) or "cpu" (the plain PyTorch
+versions, used by the tests).
 """
 
 from __future__ import annotations
@@ -143,7 +146,8 @@ def range_encode_device(buf, device) -> tuple[bytes, int]:
 
 def chunk_batch(src: np.ndarray, bit_pos: int, size: int, nbits=None,
                 held: np.ndarray | None = None, cap: int = _BUF_CAP):
-    """The host half of one step of range_decode_device: parse the chunk
+    """One block's host half of one step of the chunk walk, which
+    range_decode_many takes for all blocks at once: parse the chunk
     header at `bit_pos` of the payload's first `nbits` bits (all of it by
     default). `held` is the host decoder's slot table as the block's
     earlier chunks left it (empty for the first): the host decoder grows
@@ -180,25 +184,86 @@ def chunk_batch(src: np.ndarray, bit_pos: int, size: int, nbits=None,
                            "bound": np.array([len(held)], np.int32)}, held
 
 
-def _decode_rows(rows: list, device) -> tuple:
-    """ONE chunk decode launch on `device` for the stacked chunk rows:
-    (symbols, nreads) as numpy arrays."""
-    batch = device_io.stack(rows)
+# the rows a launch takes, as native.RangeWalk.step writes them
+_ROW_INTS = ("nbytes", "nbits", "shifts", "nvalid", "bound", "single")
+
+
+def _alloc_rows(nrows: int, cap: int, pin: bool) -> dict:
+    """Row arrays for `nrows` rows of at most `cap` - 16 payload bytes,
+    flat, for _rows to view; f2s holds up to 32768 slots a row; syms and
+    nreads take a launch's outputs. In pinned host memory where `pin` is
+    set, so that a launch's copies to and from the card start at once."""
+    def alloc(n, dtype):
+        return torch.empty(n, dtype=dtype, pin_memory=pin).numpy()
+    flat = {name: alloc(nrows, torch.int32) for name in _ROW_INTS}
+    flat.update(bufs=alloc(nrows * (cap - 16), torch.uint8),
+                rng_tables=alloc(nrows * 512, torch.int32),
+                f2s=alloc(nrows * _CHUNK, torch.uint8),
+                hdr_end=alloc(nrows, torch.int64),
+                syms=alloc(nrows * _CHUNK, torch.uint8),
+                nreads=alloc(nrows, torch.int32))
+    return flat
+
+
+def _rows(flat: dict, n: int, width: int) -> dict:
+    """C-contiguous views of the first `n` rows of _alloc_rows' arrays,
+    with `width` bytes a payload row; f2s is left to _slots."""
+    out = {name: flat[name][:n] for name in (*_ROW_INTS, "hdr_end")}
+    out["bufs"] = flat["bufs"][:n * width].reshape(n, width)
+    out["rng_tables"] = flat["rng_tables"][:n * 512].reshape(n, 2, 256)
+    return out
+
+
+def _width(walk, blocks: np.ndarray, cap: int) -> int:
+    """The row width of a step over `blocks`: the most payload bytes any
+    of their rows can hold (the rest of its payload from its header on,
+    at most `cap` - 16)."""
+    rest = (walk.bits[blocks] - walk.pos[blocks] + 7) >> 3
+    return int(max(1, min(cap - 16, int(rest.max()))))
+
+
+def _slots(walk, flat: dict, rows: dict, blocks: np.ndarray) -> None:
+    """Each row's f2s: its block's held slot table, zeros past its length,
+    4096 slots a row, or 32768 where any row's table is longer (the
+    batch's widest, as one launch takes them)."""
+    n = len(blocks)
+    F = 4096 if int(rows["bound"].max()) <= 4096 else _CHUNK
+    rows["f2s"] = flat["f2s"][:n * F].reshape(n, F)
+    np.take(walk.held[:, :F], blocks, axis=0, out=rows["f2s"])
+
+
+def _launch(rows: dict, device, flat: dict) -> tuple:
+    """ONE chunk decode launch on `device` for the rows (numpy arrays;
+    pinned host memory on a CUDA device): (symbols, nreads) as numpy
+    arrays, on a CUDA device read back into `flat`'s "syms" and "nreads"
+    (views that the next launch into them overwrites). The rows may be
+    written again once it returns."""
+    names = ("bufs", "nbytes", "rng_tables", "f2s", "shifts", "nvalid", "nbits", "bound")
+    n, glen = len(rows["nvalid"]), int(rows["nvalid"].max())
     with _kernels.card_errors("range_decode"):
-        st = to_port_state(batch, device)
+        st = {name: torch.from_numpy(rows[name]) for name in names}
+        if device.type == "cuda":
+            st = {name: t.to(device, non_blocking=True) for name, t in st.items()}
         syms, nreads = ops_range.decode_chunks(
-            st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"],
-            st["shifts"], st["nvalid"], int(batch["nvalid"].max()),
-            st["nbits"], st["bound"])
-        return syms.cpu().numpy(), nreads.cpu().numpy()
+            st["bufs"], st["nbytes"], st["rng_tables"], st["f2s"], st["shifts"],
+            st["nvalid"], glen, st["nbits"], st["bound"])
+        if device.type != "cuda":
+            return syms.numpy(), nreads.numpy()
+        out = flat["syms"][:n * glen].reshape(n, glen), flat["nreads"][:n]
+        for host, t in zip(out, (syms, nreads)):
+            torch.from_numpy(host).copy_(t, non_blocking=True)
+        # the read-back waits for the launch, and with it the copies
+        torch.cuda.current_stream(device).synchronize()
+        return out
 
 
 def range_decode_many(payloads, out_lens, device, nbits=None) -> list:
     """Decode the range payloads of a batch of blocks with the device
     pipeline. The format forces each block's chunk walk (a chunk's header
     begins where the previous chunk's renorm reads ended), so the blocks'
-    walks step in lockstep: for chunk index c, the host parses the header
-    of chunk c of every block that has one, and ONE decode launch takes a
+    walks step in lockstep: for chunk index c, one native step
+    (native.RangeWalk) parses the header of chunk c of every block that has
+    one and writes the rows of the launch, and ONE decode launch takes a
     row for each of those chunks that is not header-only; each block's
     cursor then moves by 60 + 28*nreads of its row. That is as many
     launches as the longest block has chunks, at most. Returns per block
@@ -209,59 +274,68 @@ def range_decode_many(payloads, out_lens, device, nbits=None) -> list:
     each payload's bit count. A launch or read-back that fails raises
     DeviceFault. Nothing is retried on the host."""
     device = torch.device(device)
-    srcs = [np.frombuffer(p, np.uint8) if not isinstance(p, np.ndarray) else p
-            for p in payloads]
-    nbits = [8 * len(s) if b is None else b
-             for s, b in zip(srcs, nbits or [None] * len(srcs))]
-    res: list = [np.empty(n, dtype=np.uint8) for n in out_lens]
-    bit_pos = [0] * len(srcs)
-    held = [None] * len(srcs)
-    live = [i for i, n in enumerate(out_lens) if n > 0]
+    walk = native.RangeWalk(payloads, nbits)
+    lens = np.array(out_lens, np.int64)
+    # each block's output is a row of one array, so that a step's symbols
+    # land in one copy; the rows' tails past their blocks are never read
+    out = np.empty((len(lens), int(lens.max(initial=0))), np.uint8)
+    res: list = [out[i, :n] for i, n in enumerate(out_lens)]
+    failed = np.zeros(len(lens), bool)
+    live = np.flatnonzero(lens > 0).astype(np.int32)
+    pin = device.type == "cuda"
+    flat = _alloc_rows(len(live), _BUF_CAP, pin)
     start = 0
-    while live:
-        rows, owners, held_in = [], [], []
-        for i in live:
-            size = min(_CHUNK, out_lens[i] - start)
-            try:
-                was = held[i]
-                hdr_end, single, row, held[i] = chunk_batch(
-                    srcs[i], bit_pos[i], size, nbits[i], was)
-            except native.NativeError as e:
-                res[i] = e
-                continue
-            if row is None:              # single-symbol chunk: header only
-                res[i][start:start + size] = single
-                bit_pos[i] = hdr_end
-            else:
-                rows.append(row)
-                owners.append((i, hdr_end, size))
-                held_in.append(was)
-        if rows:
-            syms, nreads = _decode_rows(rows, device)
+    while len(live):
+        sizes = np.minimum(_CHUNK, lens[live] - start).astype(np.int32)
+        rows = _rows(flat, len(live), _width(walk, live, _BUF_CAP))
+        walk.step(live, sizes, _BUF_CAP, rows)
+        _kernels.count_walk("range_steps")
+        hdr_end, single = rows["hdr_end"], rows["single"]
+        for k in np.flatnonzero(hdr_end < 0):
+            res[live[k]] = native.NativeError(
+                f"range decode prepare failed (err={hdr_end[k]})")
+            failed[live[k]] = True
+        for k in np.flatnonzero((hdr_end >= 0) & (single >= 0)):
+            # single-symbol chunk: header only
+            res[live[k]][start:start + sizes[k]] = single[k]
+            walk.pos[live[k]] = hdr_end[k]
+        todo = np.flatnonzero((hdr_end >= 0) & (single < 0))
+        if len(todo):
+            if len(todo) < len(live):
+                # the launch's rows first, in order
+                for a in rows.values():
+                    a[:len(todo)] = a[todo]
+                rows = {name: a[:len(todo)] for name, a in rows.items()}
+            blocks, sizes = live[todo], sizes[todo]
+            _slots(walk, flat, rows, blocks)
+            syms, nreads = _launch(rows, device, flat)
             # a row cut short of its payload that failed decodes again
             # with all a chunk can read
-            again = [r for r, (i, hdr_end, size) in enumerate(owners)
-                     if nreads[r] < 0 and rows[r]["nbits"][0] < nbits[i] - hdr_end]
-            if again:
-                full = [chunk_batch(srcs[owners[r][0]], bit_pos[owners[r][0]],
-                                    owners[r][2], nbits[owners[r][0]], held_in[r],
-                                    _BUF_FULL)[2] for r in again]
-                syms2, nreads2 = _decode_rows(full, device)
-                for k, r in enumerate(again):
-                    nreads[r] = nreads2[k]
-                    syms[r, :syms2.shape[1]] = syms2[k]
-            for r, (i, hdr_end, size) in enumerate(owners):
-                nr = int(nreads[r])
-                if nr < 0:
-                    res[i] = KanziError("range decode: the chunk's state or "
-                                        "renorm reads leave the payload",
-                                        ERR_PROCESS_BLOCK)
-                    continue
-                res[i][start:start + size] = syms[r, :size]
-                bit_pos[i] = hdr_end + 60 + 28 * nr
+            again = np.flatnonzero((nreads < 0) & (
+                rows["nbits"] < walk.bits[blocks] - rows["hdr_end"]))
+            if len(again):
+                more = blocks[again]
+                flat_full = _alloc_rows(len(again), _BUF_FULL, pin)
+                full = _rows(flat_full, len(again), _width(walk, more, _BUF_FULL))
+                walk.step(more, sizes[again], _BUF_FULL, full)
+                _kernels.count_walk("range_reparsed", len(again))
+                _slots(walk, flat_full, full, more)
+                syms2, nreads2 = _launch(full, device, flat_full)
+                nreads[again] = nreads2
+                syms[again, :syms2.shape[1]] = syms2
+            ok = nreads >= 0
+            for i in blocks[~ok]:
+                res[i] = KanziError("range decode: the chunk's state or "
+                                    "renorm reads leave the payload", ERR_PROCESS_BLOCK)
+                failed[i] = True
+            # symbols past a row's nvalid are zeros, and land past its block
+            if ok.all():
+                out[blocks, start:start + syms.shape[1]] = syms
+            else:
+                out[blocks[ok], start:start + syms.shape[1]] = syms[ok]
+            walk.pos[blocks[ok]] = rows["hdr_end"][ok] + 60 + 28 * nreads[ok].astype(np.int64)
         start += _CHUNK
-        live = [i for i in live
-                if start < out_lens[i] and not isinstance(res[i], Exception)]
+        live = live[(start < lens[live]) & ~failed[live]]
     return res
 
 

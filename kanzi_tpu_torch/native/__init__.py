@@ -191,6 +191,9 @@ def get_lib():
         lib.kz_range_dec_chunk.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        lib.kz_range_dec_step.restype = ctypes.c_int
+        lib.kz_range_dec_step.argtypes = [ctypes.c_int32] + [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 8
         lib.kz_frame_append.restype = ctypes.c_int64
         lib.kz_frame_append.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
@@ -785,3 +788,55 @@ def range_dec_chunk(payload: np.ndarray, bit_pos: int, buf_cap: int, nbits=None)
     f2s[1 << shift:4096] = 0
     return (int(pos), tables, None if meta[1] == 2 else f2s[:max(1 << shift, 4096)],
             shift, int(meta[1]), int(meta[2]), buf)
+
+
+class RangeWalk:
+    """The host state of a batch's RANGE chunk walk (kz_range_dec_step):
+    each block's payload and bit count, the bit position of its next chunk
+    header (`pos`, which the caller moves), and its slot table as the host
+    decoder holds it (`held`, RANGE_CHUNK slots a block, and its length
+    `held_len`). The payloads must stay alive as long as the walk."""
+
+    def __init__(self, payloads, nbits=None):
+        self.srcs = [_as_buf(p) for p in payloads]
+        nbits = nbits or [None] * len(self.srcs)
+        self.ptrs = np.array([s.ctypes.data for s in self.srcs], np.uint64)
+        self.bits = np.array([_payload_bits(s, b) for s, b in zip(self.srcs, nbits)],
+                             np.int64)
+        self.pos = np.zeros(len(self.srcs), np.int64)
+        self.held = np.zeros((len(self.srcs), RANGE_CHUNK), np.uint8)
+        self.held_len = np.zeros(len(self.srcs), np.int32)
+
+    def step(self, blocks: np.ndarray, sizes: np.ndarray, cap: int, rows: dict) -> None:
+        """Parse the next chunk header of blocks[k] into row k of `rows`:
+        {"bufs" (R, S) uint8, "nbytes", "nbits", "shifts", "nvalid", "bound"
+        (R,) int32, "rng_tables" (R, 2, 256) int32, "hdr_end" (R,) int64,
+        "single" (R,) int32}, all C-contiguous with R >= len(blocks).
+        `sizes[k]` is the chunk's byte count. hdr_end[k] is the bit position
+        past the header, or the error code that range_dec_chunk raises for
+        it; single[k] the symbol of a header-only chunk, or -1. A row holds
+        the payload's next cap - 16 bytes at most, which must fit S; its
+        bytes past nbytes are left as they were."""
+        blocks = np.ascontiguousarray(blocks, np.int32)
+        sizes = np.ascontiguousarray(sizes, np.int32)
+        n = len(blocks)
+        if len(sizes) != n or cap < 16:
+            raise ValueError("range walk step: a size a block, and a cap of 16 bytes or more")
+        if n == 0:
+            return
+        if blocks.min() < 0 or blocks.max() >= len(self.srcs):
+            raise ValueError("range walk step: block index outside the batch")
+        for name, a in rows.items():
+            if not a.flags.c_contiguous or len(a) < n:
+                raise ValueError(f"range walk step: rows[{name!r}] too short "
+                                 "or not contiguous")
+        bufs = rows["bufs"]
+        rc = get_lib().kz_range_dec_step(
+            n, blocks.ctypes.data, self.ptrs.ctypes.data, self.bits.ctypes.data,
+            self.pos.ctypes.data, sizes.ctypes.data, self.held.ctypes.data,
+            self.held_len.ctypes.data, cap, bufs.ctypes.data, bufs.shape[1],
+            *(rows[name].ctypes.data for name in (
+                "nbytes", "nbits", "rng_tables", "shifts", "nvalid", "bound",
+                "hdr_end", "single")))
+        if rc != 0:     # the rows' width, not the data
+            raise RuntimeError(f"range walk step: a row outgrew its {bufs.shape[1]} bytes")

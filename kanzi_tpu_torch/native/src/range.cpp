@@ -19,6 +19,42 @@ static constexpr u32 RANGE_LOG_RANGE = 12;
 
 namespace {
 
+// One chunk header: the alphabet, the 3-bit logRange and the frequencies
+// (the first inferred). Fills freqs and the 257 cumFreqs, whose last is
+// 1 << logRange. Returns the alphabet size; 0 is no chunk, and nothing
+// else is filled then.
+int decodeRangeHeader(IBS& ibs, int* alphabet, i32* freqs, u64* cumFreqs,
+                      u32& logRange) {
+    int alphabetSize = decodeAlphabet(ibs, alphabet);
+    if (alphabetSize == 0) return 0;
+    if (alphabetSize != 256) std::memset(freqs, 0, 256 * sizeof(i32));
+    logRange = 8 + (u32)ibs.readBits(3);
+    int scale = 1 << logRange;
+    int sum = 0;
+    int chkSize = alphabetSize < 64 ? 6 : 8;
+    u32 llr = 3;
+    while ((1u << llr) <= logRange) llr++;
+    for (int i = 1; i < alphabetSize; i += chkSize) {
+        u32 logMax = (u32)ibs.readBits(llr);
+        if (((i64)1 << logMax) > scale) throw Error("invalid range frequency size");
+        int endj = std::min(i + chkSize, alphabetSize);
+        for (int j = i; j < endj; j++) {
+            int freq = 1;
+            if (logMax > 0) {
+                freq = 1 + (int)ibs.readBits(logMax);
+                if (freq <= 0 || freq >= scale) throw Error("invalid range frequency");
+            }
+            freqs[alphabet[j]] = freq;
+            sum += freq;
+        }
+    }
+    if (scale <= sum) throw Error("invalid range frequency sum");
+    freqs[alphabet[0]] = scale - sum;
+    cumFreqs[0] = 0;
+    for (int i = 0; i < 256; i++) cumFreqs[i + 1] = cumFreqs[i] + (u64)freqs[i];
+    return alphabetSize;
+}
+
 struct RangeEncoder {
     OBS& obs;
     u64 low = 0, rng = 0;
@@ -110,36 +146,13 @@ struct RangeDecoder {
     explicit RangeDecoder(IBS& i) : ibs(i) {}
 
     int decodeHeader() {
-        int alphabetSize = decodeAlphabet(ibs, alphabet);
+        u32 logRange = 0;
+        int alphabetSize = decodeRangeHeader(ibs, alphabet, freqs, cumFreqs, logRange);
         if (alphabetSize == 0) return 0;
-        if (alphabetSize != 256) std::memset(freqs, 0, sizeof(freqs));
-        u32 logRange = 8 + (u32)ibs.readBits(3);
         int scale = 1 << logRange;
         shift = logRange;
-        int sum = 0;
-        int chkSize = alphabetSize < 64 ? 6 : 8;
-        u32 llr = 3;
-        while ((1u << llr) <= logRange) llr++;
-        for (int i = 1; i < alphabetSize; i += chkSize) {
-            u32 logMax = (u32)ibs.readBits(llr);
-            if (((i64)1 << logMax) > scale) throw Error("invalid range frequency size");
-            int endj = std::min(i + chkSize, alphabetSize);
-            for (int j = i; j < endj; j++) {
-                int freq = 1;
-                if (logMax > 0) {
-                    freq = 1 + (int)ibs.readBits(logMax);
-                    if (freq <= 0 || freq >= scale) throw Error("invalid range frequency");
-                }
-                freqs[alphabet[j]] = freq;
-                sum += freq;
-            }
-        }
-        if (scale <= sum) throw Error("invalid range frequency sum");
-        freqs[alphabet[0]] = scale - sum;
-        cumFreqs[0] = 0;
         if ((int)f2s.size() < scale) f2s.resize(scale);
         for (int i = 0; i < 256; i++) {
-            cumFreqs[i + 1] = cumFreqs[i] + (u64)freqs[i];
             int base = (int)cumFreqs[i];
             for (int j = freqs[i] - 1; j >= 0; j--) f2s[base + j] = (u16)i;
         }
@@ -294,6 +307,23 @@ extern "C" int64_t kz_range_assemble(const uint8_t* block, int64_t len,
     }
 }
 
+namespace {
+
+// A reader of the payload's bits from bitPos on: it starts at the byte
+// that holds bitPos and skips the bits before it in that byte, so a
+// header deep in the payload costs what one at its start does. Throws
+// where the bit reader from bit 0 would (bitPos past the payload).
+kz::IBS readerAt(const uint8_t* payload, int64_t payloadBits, int64_t bitPos) {
+    using namespace kz;
+    if (bitPos < 0 || bitPos > payloadBits) throw Error("no more data in bitstream");
+    const i64 byte = bitPos >> 3;
+    IBS ibs(payload + byte, (u64)(payloadBits - 8 * byte), true);
+    if (bitPos & 7) ibs.readBits((u32)(bitPos & 7));
+    return ibs;
+}
+
+}  // namespace
+
 // Decode-side split, one chunk at a time: the range format carries no
 // per-chunk stream length (a chunk's header begins where the previous
 // chunk's last renorm read ended), so boundaries are only known after
@@ -310,16 +340,12 @@ extern "C" int64_t kz_range_dec_chunk(const uint8_t* payload,
                                       int64_t bufCap) {
     try {
         using namespace kz;
-        IBS ibs(payload, (u64)payloadBits, true);
-        for (i64 skip = bitPos; skip > 0;) {
-            int b = (int)std::min<i64>(skip, 48);
-            ibs.readBits(b);
-            skip -= b;
-        }
+        IBS ibs = readerAt(payload, payloadBits, bitPos);
+        const i64 base = 8 * (bitPos >> 3);
         RangeDecoder dec(ibs);
         int alpha = dec.decodeHeader();
         if (alpha == 0) return -3;
-        i64 hdrEnd = (i64)ibs.read();
+        i64 hdrEnd = base + (i64)ibs.read();
         if (alpha == 1) {
             meta[0] = (i32)dec.shift;
             meta[1] = 2;
@@ -348,4 +374,81 @@ extern "C" int64_t kz_range_dec_chunk(const uint8_t* payload,
         if (std::getenv("KZ_DEBUG")) std::fprintf(stderr, "kz_range_dec_chunk: %s\n", e.what());
         return -1;
     }
+}
+
+// The host half of one step of a batch's chunk walk: for each row k in
+// [0, n), the chunk header of block blocks[k] at bitPos[blocks[k]] of its
+// payload (payloads[b], payloadBits[b] bits), parsed as kz_range_dec_chunk
+// does. held[b] (RANGE_CHUNK_SIZE slots a block) and heldLen[b] are the
+// block's slot table as the host decoder holds it: grown to the largest
+// table of the block's chunks so far and never cleared, so each header
+// writes its 1 << logRange slots over the table's start. Per row: hdrEnd,
+// the bit position past the header or kz_range_dec_chunk's error code
+// (the block's table then unchanged); single, the symbol of a header-only
+// chunk or -1. A row to decode gets the rest of the payload, its next
+// cap - 16 bytes at most (cap >= 16), byte-aligned at bufs + k * bufStride (the
+// bytes after them up to bufStride are left as they were: the decode
+// reads none of them); its byte and bit counts, its cumFreq and freq
+// planes, its logRange, its `sizes[k]` bytes to decode (nvalid) and its
+// table's length (bound). Each block is in one row at most. Returns 0,
+// or -7 where a row's bytes would not fit bufStride (the caller's
+// sizing).
+extern "C" int kz_range_dec_step(int32_t n, const int32_t* blocks,
+                                 const uint64_t* payloads,
+                                 const int64_t* payloadBits,
+                                 const int64_t* bitPos, const int32_t* sizes,
+                                 uint8_t* held, int32_t* heldLen, int64_t cap,
+                                 uint8_t* bufs, int64_t bufStride,
+                                 int32_t* nbytes, int32_t* nbits,
+                                 int32_t* tables, int32_t* shifts,
+                                 int32_t* nvalid, int32_t* bound,
+                                 int64_t* hdrEnd, int32_t* single) {
+    using namespace kz;
+    int alphabet[256];
+    i32 freqs[256];
+    u64 cumFreqs[257];
+    for (int k = 0; k < n; k++) {
+        const int b = blocks[k];
+        const uint8_t* payload = (const uint8_t*)(uintptr_t)payloads[b];
+        const i64 bits = payloadBits[b];
+        single[k] = -1;
+        try {
+            IBS ibs = readerAt(payload, bits, bitPos[b]);
+            u32 logRange = 0;
+            int alpha = decodeRangeHeader(ibs, alphabet, freqs, cumFreqs, logRange);
+            if (alpha == 0) {
+                hdrEnd[k] = -3;
+                continue;
+            }
+            const i64 end = 8 * (bitPos[b] >> 3) + (i64)ibs.read();
+            const i64 copyBits = std::min(bits - end, (cap - 16) * 8);
+            const i64 used = (copyBits + 7) >> 3;
+            if (alpha > 1 && used > bufStride) return -7;
+            const int scale = 1 << logRange;
+            u8* slots = held + (size_t)b * RANGE_CHUNK_SIZE;
+            for (int i = 0; i < 256; i++)
+                if (freqs[i] > 0) std::memset(slots + cumFreqs[i], i, (size_t)freqs[i]);
+            heldLen[b] = std::max(heldLen[b], scale);
+            hdrEnd[k] = end;
+            if (alpha == 1) {
+                single[k] = alphabet[0];
+                continue;
+            }
+            if (copyBits > 0) ibs.readArray(bufs + (size_t)k * bufStride, (u64)copyBits);
+            nbytes[k] = (i32)used;
+            nbits[k] = (i32)copyBits;
+            i32* t = tables + (size_t)k * 512;
+            for (int i = 0; i < 256; i++) {
+                t[i] = (i32)cumFreqs[i];
+                t[256 + i] = freqs[i];
+            }
+            shifts[k] = (i32)logRange;
+            nvalid[k] = sizes[k];
+            bound[k] = heldLen[b];
+        } catch (const std::exception& e) {
+            if (std::getenv("KZ_DEBUG")) std::fprintf(stderr, "kz_range_dec_step: %s\n", e.what());
+            hdrEnd[k] = -1;
+        }
+    }
+    return 0;
 }

@@ -1001,3 +1001,33 @@ def test_range_wide_and_strict_rows_match_plain(card):
 def device_io_stack(rows):
     from kanzi_tpu_torch.entropy import device_io
     return device_io.stack(rows)
+
+
+@pytest.mark.parametrize("case", ["blocks", "hostile"])
+def test_range_walk_on_card_equals_host(card, case):
+    """The device RANGE decode's native walk on the card (pinned rows and
+    read-back): per block the host decoder's bytes, or a rejection where
+    the host rejects; one native step a chunk index, one re-parse a row
+    cut at _BUF_CAP that failed."""
+    from torch_range_inputs import hostile_range_block
+    rng = np.random.default_rng(19)
+    if case == "blocks":
+        text = _text(1 << 20)
+        datas = [text * 3, rng.integers(0, 256, 300000, dtype=np.uint8).tobytes(),
+                 b"z" * 70000 + text[:5000], rng.integers(0, 4, 200000, dtype=np.uint8).tobytes()]
+        blocks = [(native.entropy_encode(4, np.frombuffer(d, np.uint8), {"bsVersion": 6})[0],
+                   len(d)) for d in datas]
+    else:
+        blocks = [hostile_range_block(c) for c in ("header_rejected", "held_slot", "cut_row")]
+    _kernels.reset_counts()
+    got = range_device.range_decode_many([p for p, _ in blocks], [n for _, n in blocks], card)
+    for (payload, n), g in zip(blocks, got):
+        try:
+            host = native.entropy_decode(4, payload, n, {"bsVersion": 6})
+        except native.NativeError:
+            assert isinstance(g, (native.NativeError, KanziError))
+            continue
+        assert not isinstance(g, Exception) and g.tobytes() == host
+    assert _kernels.walk_counts == {"range_steps": max(-(-n // 32768) for _, n in blocks),
+                                    "range_reparsed": int(case == "hostile")}
+    assert _kernels.launches["range_decode"] > 0 and _kernels.plain_calls["range_decode"] == 0

@@ -5,6 +5,7 @@ C++ encoder's and kanzi_tpu's device engine's, at 32 KiB chunk edges, with
 reduced logRange on small final chunks and on degenerate chunks; the
 sequential chunk walk decodes them; a corrupted block raises."""
 
+import functools
 import os
 
 import numpy as np
@@ -21,6 +22,7 @@ from kanzi_tpu_torch.entropy import range_device
 from kanzi_tpu_torch.ops import range as ops_range
 from kanzi_tpu_torch.ops.state import to_port_state
 from torch_edge_inputs import range_encode_cases, range_u32_cases
+from torch_range_inputs import hostile_range_block
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "SURVEY.md"), "rb") as _fh:
@@ -316,3 +318,261 @@ def test_range_quotient_estimate_is_exact(ulp):
     assert (est[pos].astype(object) * r2[pos].astype(object) < (1 << 61)).all()
     assert (est[~pos] == 4096).all()
     assert (d // safe >= 4096).sum() > 1000 and (~pos).sum() >= 1
+
+
+# --- the chunk walk's native step (kz_range_dec_step) ---------------------
+
+def _kind(name, seed, n):
+    """`n` bytes of one kind of the benchmark's mixed corpus."""
+    rng = np.random.default_rng(seed)
+    if name == "text":
+        arr = np.frombuffer((_TEXT * (n // len(_TEXT) + 1))[:n], np.uint8).copy()
+        idx = rng.integers(0, n, n // 64)
+        arr[idx] = rng.integers(32, 127, len(idx), dtype=np.uint8)
+        return arr.tobytes()
+    if name == "int32_deltas":
+        return np.cumsum(rng.integers(-3, 4, n // 4, dtype=np.int32)).astype("<i4").tobytes()
+    if name == "dna":
+        return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].tobytes()
+    if name == "sparse_zeros":
+        z = np.zeros(n, np.uint8)
+        idx = rng.integers(0, n, n // 50)
+        z[idx] = rng.integers(1, 256, len(idx), dtype=np.uint8)
+        return z.tobytes()
+    return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+
+def _lz_range(data):
+    """A block as the LZ+RANGE Writer stores it: its LZ output (the block
+    itself where LZ declines) and that output's RANGE payload."""
+    try:
+        post, _ = native.transform_forward(3, data, {"bsVersion": 6, "blockSize": len(data),
+                                                     "size": len(data)}, 2 * len(data))
+    except native.NativeSkip:
+        post = bytes(data)
+    payload, _bits = native.entropy_encode(4, np.frombuffer(post, np.uint8), {"bsVersion": 6})
+    return post, payload
+
+
+def _chunk_reads(post):
+    """Each chunk's renorm reads (None for a header-only chunk), from the
+    chunk encoded alone: the range coder starts each chunk afresh."""
+    reads = []
+    for c in range(0, len(post), CHUNK):
+        piece = np.frombuffer(post[c:c + CHUNK], np.uint8)
+        _t, _h, hdr_bits, flags, _s = native.range_prepare(piece)
+        bits = native.entropy_encode(4, piece, {"bsVersion": 6})[1]
+        reads.append(None if flags[0] == 2 else (bits - int(hdr_bits[0]) - 60) // 28)
+    return reads
+
+
+def _write_bits(bits: np.ndarray, value: int, width: int) -> np.ndarray:
+    return np.concatenate([bits, np.array([(value >> (width - 1 - i)) & 1
+                                           for i in range(width)], np.uint8)])
+
+
+def _slots32768_payload():
+    """A block of two chunks: a text chunk (logRange 12), then a chunk
+    whose header carries logRange 15 (32768 slots: ten symbols, nine of
+    frequency 3000), with random coder bytes after it. Returns (payload,
+    sizes, reads of its chunks: the second's are not needed)."""
+    piece = np.frombuffer(_TEXT[:CHUNK], np.uint8)
+    first, bits = native.entropy_encode(4, piece, {"bsVersion": 6})
+    stream = np.unpackbits(np.frombuffer(first, np.uint8))[:bits]
+    stream = _write_bits(stream, 1, 1)                   # a listed alphabet
+    stream = _write_bits(stream, 1, 5)                   # two mask bytes
+    stream = _write_bits(stream, 0xFF, 8)
+    stream = _write_bits(stream, 0x03, 8)                # symbols 0-9
+    stream = _write_bits(stream, 15 - 8, 3)              # logRange 15
+    for i in range(1, 10, 6):                            # groups of 6, llr 4
+        stream = _write_bits(stream, 12, 4)
+        for _ in range(i, min(i + 6, 10)):
+            stream = _write_bits(stream, 3000 - 1, 12)
+    rng = np.random.default_rng(32768)
+    stream = np.concatenate([stream, np.unpackbits(rng.integers(0, 256, 40000, dtype=np.uint8))])
+    return np.packbits(stream).tobytes(), [CHUNK, CHUNK], [_chunk_reads(piece.tobytes())[0]]
+
+
+def _walk_batch(case):
+    """(payloads, out lengths, each block's chunk reads) of a batch."""
+    if case == "slots_32768":
+        payload, sizes, reads = _slots32768_payload()
+        text_post, text_payload = _lz_range(_kind("text", 5, 90000))
+        return ([payload, text_payload], [sum(sizes), len(text_post)],
+                [reads + [0], _chunk_reads(text_post)])
+    if case == "header_only":
+        rng = np.random.default_rng(11)
+        blocks = [b"q" * CHUNK + _TEXT[:20000] + b"\0" * (CHUNK + 500),
+                  rng.integers(0, 256, 70000, dtype=np.uint8).tobytes()]
+        posts = blocks
+        payloads = [native.entropy_encode(4, np.frombuffer(b, np.uint8), {"bsVersion": 6})[0]
+                    for b in blocks]
+    else:
+        kinds = ([case] * 3 if case != "mixed" else
+                 ["text", "int32_deltas", "dna", "sparse_zeros", "random"])
+        made = [_lz_range(_kind(k, 100 + i, 60000 + 23000 * i)) for i, k in enumerate(kinds)]
+        posts, payloads = [m[0] for m in made], [m[1] for m in made]
+    return payloads, [len(p) for p in posts], [_chunk_reads(p) for p in posts]
+
+
+WALK_CASES = ["text", "int32_deltas", "dna", "sparse_zeros", "random", "mixed",
+              "header_only", "slots_32768"]
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_step_rows_equal_chunk_batch(case):
+    # chunk by chunk and block by block, kz_range_dec_step's rows, header
+    # ends, single symbols and held slot tables equal chunk_batch's, and
+    # the launch's f2s rows equal the stacked rows'
+    payloads, lens, reads = _walk_batch(case)
+    srcs = [np.frombuffer(p, np.uint8) for p in payloads]
+    walk = native.RangeWalk(payloads)
+    flat = range_device._alloc_rows(len(srcs), range_device._BUF_CAP, False)
+    held, single_seen, wide_seen = [None] * len(srcs), 0, 0
+    live = np.arange(len(srcs), dtype=np.int32)
+    start, index = 0, 0
+    while len(live):
+        sizes = np.minimum(CHUNK, np.array(lens)[live] - start).astype(np.int32)
+        rows = range_device._rows(flat, len(live),
+                                  range_device._width(walk, live, range_device._BUF_CAP))
+        walk.step(live, sizes, range_device._BUF_CAP, rows)
+        want_rows = []
+        for k, b in enumerate(live):
+            end, single, row, held[b] = range_device.chunk_batch(
+                srcs[b], int(walk.pos[b]), int(sizes[k]), None, held[b])
+            assert rows["hdr_end"][k] == end, (case, index, b)
+            n = len(held[b])
+            assert walk.held_len[b] == n
+            assert np.array_equal(walk.held[b, :n], held[b]) and not walk.held[b, n:].any()
+            if row is None:
+                assert rows["single"][k] == single
+                single_seen += 1
+                walk.pos[b] = end
+                continue
+            assert rows["single"][k] == -1
+            # the decode reads a row's first nbytes bytes, and no others
+            nb = int(row["nbytes"][0])
+            assert np.array_equal(rows["bufs"][k, :nb], row["bufs"][0, :nb])
+            for name in ("nbytes", "nbits", "rng_tables", "shifts", "nvalid", "bound"):
+                assert np.array_equal(rows[name][k], row[name][0]), (case, index, b, name)
+            want_rows.append((k, row))
+            walk.pos[b] = end + 60 + 28 * reads[b][index]
+        if want_rows:
+            todo = np.array([k for k, _ in want_rows])
+            launch = {name: rows[name][todo] for name in ("bound",)}
+            range_device._slots(walk, flat, launch, live[todo])
+            want = range_device.device_io.stack([row for _, row in want_rows])["f2s"]
+            assert np.array_equal(launch["f2s"], want)
+            wide_seen += want.shape[1] == 32768
+        start += CHUNK
+        index += 1
+        live = live[start < np.array(lens)[live]]
+    assert index == max(-(-n // CHUNK) for n in lens)
+    if case == "header_only":
+        assert single_seen >= 2
+    if case == "slots_32768":
+        assert wide_seen == 1 and walk.held_len[0] == 32768
+
+
+_DEEP = 60 << 20         # a header's byte in the 64 MiB payload
+
+
+@functools.lru_cache(maxsize=1)
+def _deep_payload():
+    """64 MiB of random bytes and a text chunk's RANGE payload (header and
+    coder stream) to place in them."""
+    rng = np.random.default_rng(64)
+    chunk, bits = native.entropy_encode(4, np.frombuffer(_TEXT[:CHUNK], np.uint8),
+                                        {"bsVersion": 6})
+    return rng.integers(0, 256, 64 << 20, dtype=np.uint8), chunk, bits
+
+
+@pytest.mark.parametrize("offset", range(8))
+def test_header_parse_deep_in_a_payload_equals_a_copy_from_its_byte(offset):
+    # a chunk header at bit 8 * 60 MiB + offset of a 64 MiB payload parses
+    # as the same header of a copy that starts at its byte: the reader
+    # starts at the header's byte, whatever lies before it
+    noise, chunk, bits = _deep_payload()
+    big = noise.copy()
+    window = np.unpackbits(big[_DEEP:_DEEP + len(chunk) + 1])
+    window[offset:offset + bits] = np.unpackbits(np.frombuffer(chunk, np.uint8))[:bits]
+    big[_DEEP:_DEEP + len(chunk) + 1] = np.packbits(window)
+    pos = 8 * _DEEP + offset
+    got = native.range_dec_chunk(big, pos, range_device._BUF_CAP)
+    moved = native.range_dec_chunk(big[_DEEP:].copy(), offset, range_device._BUF_CAP)
+    assert got[0] == moved[0] + 8 * _DEEP and got[4] == 0 and got[3] == 12
+    for g, m in zip(got[1:], moved[1:]):
+        assert np.array_equal(np.asarray(g), np.asarray(m))
+    # the walk's step reads the same header there
+    walk = native.RangeWalk([big])
+    walk.pos[0] = pos
+    rows = range_device._rows(range_device._alloc_rows(1, range_device._BUF_CAP, False), 1,
+                              range_device._BUF_CAP - 16)
+    walk.step(np.zeros(1, np.int32), np.full(1, CHUNK, np.int32), range_device._BUF_CAP, rows)
+    assert rows["hdr_end"][0] == got[0] and rows["shifts"][0] == 12
+    assert np.array_equal(rows["rng_tables"][0], got[1])
+    assert np.array_equal(rows["bufs"][0], got[6][:range_device._BUF_CAP - 16])
+
+
+@pytest.mark.parametrize("case", ["header_rejected", "held_slot", "cut_row"])
+def test_hostile_walk_outcomes_equal_the_host(case):
+    # beside a good block in one batch, a hostile block decodes to the
+    # host decoder's bytes or is rejected as before the native step: a
+    # header the host rejects as NativeError (the prepare's error code),
+    # a decode the host fails as KanziError
+    good = _TEXT[1000:2500]
+    good_payload, _ = native.entropy_encode(4, np.frombuffer(good, np.uint8), {"bsVersion": 6})
+    payload, n = hostile_range_block(case)
+    try:
+        host = native.entropy_decode(4, payload, n, {"bsVersion": 6})
+    except native.NativeError:
+        host = None
+    _kernels.reset_counts()
+    got_good, got = range_device.range_decode_many([good_payload, payload], [len(good), n],
+                                                   "cpu")
+    assert got_good.tobytes() == good
+    if case == "held_slot":
+        assert host is not None and got.tobytes() == host
+        assert host[CHUNK:CHUNK + 4] == b"AAAA"
+    elif case == "header_rejected":
+        assert host is None and isinstance(got, native.NativeError)
+        assert "prepare failed (err=-3)" in str(got)
+    else:
+        assert host is None and isinstance(got, KanziError)
+        assert got.code == ERR_PROCESS_BLOCK
+    assert _kernels.walk_counts == {"range_steps": -(-n // CHUNK),
+                                    "range_reparsed": int(case == "cut_row")}
+
+
+@pytest.mark.parametrize("case", ["lockstep", "one_block", "reparse"])
+def test_walk_counts_steps_and_reparses(case):
+    # one native step a chunk index of the batch, one re-parse a retried
+    # row; one plain decode a chunk index with a chunk to decode, a
+    # block alone included (range_decode_device)
+    rng = np.random.default_rng(3)
+    if case == "reparse":
+        blocks = [hostile_range_block("cut_row"), hostile_range_block("cut_row")]
+        want = {"range_steps": 1, "range_reparsed": 2}, 2
+    else:
+        datas = [b"a" * (2 * CHUNK) + _TEXT[:40],       # chunks 0, 1 header-only
+                 _TEXT[:60],
+                 b"b" * CHUNK + rng.integers(0, 9, 50, dtype=np.uint8).tobytes()]
+        blocks = [(native.entropy_encode(4, np.frombuffer(d, np.uint8), {"bsVersion": 6})[0],
+                   len(d)) for d in datas]
+        # chunk index 0: one row (block 1); 1: one (block 2); 2: one (block 0)
+        want = {"range_steps": 3, "range_reparsed": 0}, 3
+    if case == "one_block":
+        for (payload, n), data in zip(blocks, datas):
+            _kernels.reset_counts()
+            assert range_device.range_decode_device(payload, n, "cpu") == data
+            assert _kernels.walk_counts == {"range_steps": -(-n // CHUNK), "range_reparsed": 0}
+            assert _kernels.plain_calls["range_decode"] == 1
+        return
+    _kernels.reset_counts()
+    got = range_device.range_decode_many([p for p, _ in blocks], [n for _, n in blocks], "cpu")
+    assert _kernels.walk_counts == want[0]
+    assert _kernels.plain_calls["range_decode"] == want[1]
+    if case == "lockstep":
+        assert [g.tobytes() for g in got] == datas
+    else:
+        assert all(isinstance(g, KanziError) for g in got)
