@@ -27,7 +27,8 @@ class Call:
 class Run:
     """What a window left for the metric readers: the calls, the launch
     counts, the Reader's block events of each call (traced runs), the
-    device trace (traced runs, on a card) and the work of each object's
+    reduced trace (traced runs, on a card: trace.Trace, the device's
+    intervals and the program's spans) and the work of each object's
     blocks, [(entropy id, entropy payload bytes, entropy output bytes)]."""
     calls: list
     window_s: float
@@ -48,6 +49,28 @@ class Run:
 def decompress_MBps(run: Run) -> float:
     """Bytes returned over the whole window, in MB/s (10^6 bytes)."""
     return run.bytes_out / MB / run.window_s
+
+
+def card_ms_per_mb(run: Run) -> float | None:
+    """The card's busy time (trace.Trace.busy_s: the union of its kernel,
+    copy and set intervals over the window) per MB that the window's calls
+    returned: what a restore holds the card for. None without a trace or
+    with no device time in it."""
+    if run.trace is None or run.trace.busy_s <= 0 or run.bytes_out <= 0:
+        return None
+    return 1e3 * run.trace.busy_s / (run.bytes_out / MB)
+
+
+def device_ms_per_mb(run: Run, *needles: str) -> float | None:
+    """Device time of the operations whose name holds any needle
+    (trace.Trace.device_seconds) per MB returned. None without a trace or
+    where no such operation ran."""
+    if run.trace is None or run.bytes_out <= 0:
+        return None
+    seconds = run.trace.device_seconds(*needles)
+    if seconds <= 0:
+        return None
+    return 1e3 * seconds / (run.bytes_out / MB)
 
 
 def batches(log) -> list:
@@ -116,3 +139,16 @@ def transform_ms_per_mib(run: Run) -> float | None:
     if not run.events or run.mib_out <= 0:
         return None
     return 1e3 * sum(transform_seconds(log) for log in run.events) / run.mib_out
+
+
+def span_ms_per_mib(run: Run, *needles: str) -> float | None:
+    """Thread time inside the program's spans whose name holds any needle
+    (trace.Trace.span_seconds), ms per MiB returned: the convention of
+    transform_ms_per_mib. None where the run has no trace or no span
+    matches."""
+    if run.trace is None or run.mib_out <= 0:
+        return None
+    seconds = run.trace.span_seconds(*needles)
+    if seconds is None:
+        return None
+    return 1e3 * seconds / run.mib_out

@@ -9,28 +9,18 @@ A decode kernel's work is counted from the stream it decodes, as the
 algorithm needs it: each entropy payload byte read once, each decoded byte
 written once, each chunk's frequency table read once (what a launch's row
 needs to rebuild its slot table), and a fixed number of integer operations
-a decoded byte:
-
-- range (K8, RangeCodec.go): 32 KiB chunks; a chunk's table is its
-  (cumFreq, freq) planes of 256 u32 each; a byte is a shift, a subtract, a
-  divide, a slot lookup, a multiply-add, a subtract and a multiply, and the
-  renormalisation test (xor, add, and, compare): 10 operations.
-- ANS order 1 (K6, ANSRangeCodec.go): 4 MiB chunks; a chunk's table is
-  256 contexts of 256 (cumFreq, freq) u32 pairs; a byte is a mask, a slot
-  lookup, a shift, a multiply-add, a subtract and the renormalisation
-  compare: 6 operations.
+a decoded byte. Each codec states its own chunk, table and operations
+beside its plain decoder: `work(payload_bytes, out_bytes)` in
+`reference/entropy/<name>.py`, found by the entropy id, so a codec with a
+device decode kernel adds a file and edits none here.
 """
 
 from __future__ import annotations
 
+from portbench import reference
+
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
-
-CODECS = {
-    # entropy id: (chunk bytes, table bytes a chunk, operations a decoded byte)
-    4: (1 << 15, 2 * 256 * 4, 10),          # RANGE
-    8: (16384 << 8, 256 * 256 * 2 * 4, 6),   # ANS1
-}
 
 
 def least_seconds(nbytes: float, nops: float) -> tuple[float, str]:
@@ -42,9 +32,12 @@ def least_seconds(nbytes: float, nops: float) -> tuple[float, str]:
 
 def decode_work(entropy: int, payload_bytes: int, out_bytes: int) -> tuple[int, int]:
     """(bytes, operations) the decode of one block's entropy payload needs."""
-    chunk, table, ops = CODECS[entropy]
-    chunks = -(-out_bytes // chunk)
-    return payload_bytes + out_bytes + chunks * table, ops * out_bytes
+    codec = reference.codecs("entropy").get(entropy)
+    if codec is None:
+        raise ValueError(f"entropy id {entropy}: no file under reference/entropy/ names it")
+    if not hasattr(codec, "work"):
+        raise ValueError(f"entropy id {entropy}: {codec.__file__} gives no work()")
+    return codec.work(payload_bytes, out_bytes)
 
 
 def roofline_percent(run, entropy: int, needles: tuple) -> float | None:

@@ -1,4 +1,11 @@
-"""Range (entropy/RangeCodec.go): 32 KiB chunks, 60-bit state, 28-bit reads."""
+"""Range (entropy/RangeCodec.go): 32 KiB chunks, 60-bit state, 28-bit reads.
+
+The decode's work (K8; portbench/peaks.py): 32 KiB chunks; a chunk's table
+is its (cumFreq, freq) planes of 256 u32 each; a byte is a shift, a
+subtract, a divide, a slot lookup, a multiply-add, a subtract and a
+multiply, and the renormalisation test (xor, add, and, compare): 10
+operations.
+"""
 
 from __future__ import annotations
 
@@ -11,6 +18,15 @@ RANGE_CHUNK = 1 << 15
 TOP_RANGE = 0x0FFFFFFFFFFFFFFF
 BOTTOM_RANGE = 0xFFFF
 RANGE_MASK = 0x0FFFFFFF00000000
+TABLE_BYTES = 2 * 256 * 4
+OPS_PER_BYTE = 10
+
+
+def work(payload_bytes: int, out_bytes: int) -> tuple[int, int]:
+    """(bytes, operations) a block's decode needs: the payload read once,
+    the output written once, a table a chunk."""
+    chunks = -(-out_bytes // RANGE_CHUNK)
+    return payload_bytes + out_bytes + chunks * TABLE_BYTES, OPS_PER_BYTE * out_bytes
 
 
 def decode(bits: Bits, length: int) -> bytearray:

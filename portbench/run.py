@@ -16,8 +16,10 @@ call running to its end. With `--trace 0` the run reports the cell's
 end-to-end metrics; with `--trace 1` it runs the same window under
 torch.profiler, with the operation's own spans (for `decompress`, a
 block-event listener on each Reader), and reports the cell's per-layer
-metrics, each read by its own file `metrics/<name>.py`. After the window,
-the operation's checks (check.py) decide `correct`.
+metrics, each read by its own file `metrics/<name>.py`. A cell with an
+end-to-end metric read from the device trace runs its `--trace 0` window
+under torch.profiler too, without the operation's spans. After the
+window, the operation's checks (check.py) decide `correct`.
 
 The last line on stdout is one JSON object; the checks, each beside its
 limit, are the last lines on stderr. Without a CUDA card the run exits 3
@@ -62,6 +64,13 @@ def cell_of(bench: dict, workload: str) -> dict:
 
 def metrics_of(bench: dict, key: str, workload: str) -> list:
     return [m for m in bench[key] if workload in m.get("workloads", [workload])]
+
+
+def profiled(bench: dict, workload: str, traced: bool) -> bool:
+    """Whether the window runs under torch.profiler: a traced run, or one
+    whose end-to-end metrics include one read from the device trace."""
+    return traced or any(m["source"] == "device_trace"
+                         for m in metrics_of(bench, "end_to_end", workload))
 
 
 def reader(name: str):
@@ -137,7 +146,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
 
     # the window
     profiler = None
-    if traced:
+    if profiled(bench, workload, traced):
         acts = [torch.profiler.ProfilerActivity.CPU]
         if on_card:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -166,6 +175,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
             run.trace = tracing.reduce(tracing.load(path))
         finally:
             os.unlink(path)
+    if traced and run.trace is not None:
         dev.update(busy_s=run.trace.busy_s, window_s=run.trace.window_s)
         fields["breakdown"] = {"device_ops": run.trace.device_ops(),
                                "idle_gaps": run.trace.idle_gaps}

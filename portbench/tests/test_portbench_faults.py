@@ -59,6 +59,20 @@ def test_a_sound_run_is_correct(mix):
     assert list(result)[-1] == "checks"
 
 
+def test_an_untraced_run_of_a_cell_with_a_card_metric_runs_under_the_profiler():
+    # ans1.archive reports card_ms_per_MB, read from the device trace, so its
+    # --trace 0 window is profiled; on the CPU the trace holds no device time
+    # and the metric is left out, and the run stays untraced in what it prints
+    seen = []
+    with patched(run.tracing, "reduce", lambda ev, _r=run.tracing.reduce: seen.append(1)
+                 or _r(ev)):
+        result, checks = one_run("archive", workload="ans1.archive")
+    assert result["correct"], checks
+    assert seen == [1]
+    assert "card_ms_per_MB" not in result["metrics"] and "setup_s" in result["metrics"]
+    assert "breakdown" not in result and "busy_s" not in result["device"]
+
+
 @pytest.mark.parametrize("mix", sorted(MIXES))
 def test_control_checksum_unverified(mix):
     with control.unchecked_blocks():

@@ -3,6 +3,9 @@
 The program's streams are written here on its host C++ path, which its
 own tests hold byte for byte to the device path's."""
 
+import json
+import os
+
 import pytest
 
 from portbench import corpus, reference
@@ -11,7 +14,10 @@ from portbench.check import layouts, work
 import kanzi_tpu_torch as kt
 from kanzi_tpu_torch.xxhash import xxhash32 as program_xxhash32
 
-CONFIGS = {"range": ("LZ", "RANGE"), "ans1": ("NONE", "ANS1")}
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+# every configuration of the benchmark, by its file's name
+CONFIGS = {f[:-5]: json.load(open(os.path.join(CONFIG_DIR, f)))
+           for f in sorted(os.listdir(CONFIG_DIR)) if f.endswith(".json")}
 
 
 @pytest.fixture(scope="module")
@@ -19,14 +25,14 @@ def data():
     return corpus.synth_corpus((3 << 20) + 12345, 2 ** 32 + 9, 1)
 
 
-@pytest.mark.parametrize("codec", sorted(CONFIGS))
-def test_reference_decodes_every_block(codec, data):
-    transform, entropy = CONFIGS[codec]
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_reference_decodes_every_block(name, data):
+    config = CONFIGS[name]
     size = 1 << 20
-    blob = kt.compress(data, transform=transform, entropy=entropy, block_size=size,
-                       jobs=2, checksum=32, device=None)
+    blob = kt.compress(data, transform=config["transform"], entropy=config["entropy"],
+                       block_size=size, jobs=2, checksum=config["checksum"], device=None)
     header, frames = reference.parse(blob)
-    assert header.block_size == size and header.checksum_bits == 32
+    assert header.block_size == size and header.checksum_bits == config["checksum"]
     assert header.size == len(data) and len(frames) == 4
     for f in frames:
         original = data[f.index * size:(f.index + 1) * size]
@@ -39,14 +45,15 @@ def test_reference_decodes_every_block(codec, data):
     assert sum(p for _, p, _ in w) < len(blob)
 
 
-def test_small_and_degenerate_blocks():
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_small_and_degenerate_blocks(name):
+    config = CONFIGS[name]
     for data in (b"x" * 5000, bytes(range(256)) * 40, b"ab" * 3, b"\x00" * 70000):
-        for transform, entropy in CONFIGS.values():
-            blob = kt.compress(data, transform=transform, entropy=entropy, block_size=65536,
-                               checksum=32, device=None)
-            header, frames = reference.parse(blob)
-            out = b"".join(reference.decode_block(blob, header, f)[0] for f in frames)
-            assert out == data
+        blob = kt.compress(data, transform=config["transform"], entropy=config["entropy"],
+                           block_size=65536, checksum=config["checksum"], device=None)
+        header, frames = reference.parse(blob)
+        out = b"".join(reference.decode_block(blob, header, f)[0] for f in frames)
+        assert out == data
 
 
 def test_a_flipped_checksum_bit_is_found_where_the_reader_reads_it():

@@ -5,6 +5,11 @@ union of the device's kernel, copy and set intervals inside it, so that
 work on two streams at once counts once; idle time is the rest. Each idle
 gap is named by the host event that covers most of it, or as host code
 outside torch operations where none covers half of it.
+
+The program's spans (`torch.profiler.record_function` ranges, category
+`user_annotation`) other than WINDOW are kept as they are, clipped to the
+window, for the metrics that read them; they name no gap and add no busy
+time.
 """
 
 from __future__ import annotations
@@ -30,10 +35,23 @@ class Trace:
     busy_s: float
     device: list = field(default_factory=list)   # (name, start_us, end_us), clipped
     idle_gaps: list = field(default_factory=list)  # [[label, seconds]], longest first
+    spans: list = field(default_factory=list)   # (name, thread id, start_us, end_us), clipped
 
     def device_seconds(self, *needles: str) -> float:
         """Device seconds of the operations whose name holds any needle."""
         return sum(e - s for n, s, e in self.device if any(k in n for k in needles)) / 1e6
+
+    def span_seconds(self, *needles: str) -> float | None:
+        """Thread seconds inside the spans whose name holds any needle: on
+        each thread the union of those spans, so that a nested match counts
+        once, summed over the threads. None where no span matches."""
+        by_thread = defaultdict(list)
+        for n, tid, s, e in self.spans:
+            if any(k in n for k in needles):
+                by_thread[tid].append((s, e))
+        if not by_thread:
+            return None
+        return sum(e - s for spans in by_thread.values() for s, e in merge(spans)) / 1e6
 
     def device_ops(self, top: int = 10) -> list:
         total = defaultdict(float)
@@ -67,7 +85,7 @@ def reduce(events: list, top: int = 10) -> Trace:
         raise ValueError(f"the trace holds {len(win)} windows named {WINDOW}")
     w0 = float(win[0]["ts"])
     w1 = w0 + float(win[0]["dur"])
-    device, host = [], []
+    device, host, spans = [], [], []
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
@@ -80,6 +98,10 @@ def reduce(events: list, top: int = 10) -> Trace:
                 device.append((str(e.get("name", "")), s, t))
         elif cat in HOST_CATS:
             host.append((str(e.get("name", "")), s, t))
+        elif cat == "user_annotation" and e is not win[0]:
+            s, t = max(s, w0), min(t, w1)
+            if t > s:
+                spans.append((str(e.get("name", "")), e.get("tid"), s, t))
     merged = merge((s, e) for _, s, e in device)
     busy = sum(e - s for s, e in merged)
     gaps, prev = [], w0
@@ -89,7 +111,7 @@ def reduce(events: list, top: int = 10) -> Trace:
         prev = max(prev, e)
     if w1 > prev:
         gaps.append((prev, w1))
-    return Trace((w1 - w0) / 1e6, busy / 1e6, device, name_gaps(gaps, host, top))
+    return Trace((w1 - w0) / 1e6, busy / 1e6, device, name_gaps(gaps, host, top), spans)
 
 
 def name_gaps(gaps: list, host: list, top: int) -> list:
